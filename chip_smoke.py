@@ -7,21 +7,35 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 Phases (any failure raises, so the script exits non-zero and prints no
 result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from csrc/ with nvcc for sm_90a;
-  3. check each kernel against its plain PyTorch version on the card:
-     fields at 480x640 (low-res profile), 1080x1920 (high-res) and 437x467,
-     gather pack=1 and pack=2 at both profiles (exact equality);
-  4. drive the main path (initialize + process_frames) on rendered 640x480
-     frames with a z drift, B=1024: 65/65 markers in every frame, finite
-     tilt, nonzero kernel launch counts; rerun it with the kernels' plain
-     versions and require identical detections; then the same at
-     1080x1920, B=48 (the row-tiled size class), and at 640x480, B=64 with
-     an odd K=97, where the path takes the pack=1 gather;
-  5. for each of those runs, check the path's kernels against their plain
-     versions on that run's own frames, and time them and the pipeline
-     (kernel path and plain path) with CUDA events / the host clock after
-     warm-up.
-The line before the last is the kernels' JSON record; the last line is
+  2. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
+     source, started together);
+  3. check each kernel against its plain PyTorch version on the card at the
+     reference sensor's unaligned 437x467: fields, gather pack=1 and 2
+     (exact equality), window sums (rtol 1e-5, atol 2e-2);
+  4. drive the main path (initialize + process_frames) on rendered frames
+     with a z drift, in the runs of RUNS: 640x480 B=1024 and 1080x1920 B=48
+     on the fused branch, the same 1080x1920 frames on the unfused branch
+     (backend "xla", the window-sums kernel), and 640x480 B=64 with an odd
+     K=97 (the pack=1 gather). Each run: 65/65 markers in every frame,
+     finite tilt, the drift's direction, exactly its branch's kernels
+     launched (counts set to 0 just before, read just after); the same run
+     with the kernels' plain versions (identical detections on the fused
+     branch; the reference's xla-vs-pallas tolerances on the unfused one,
+     which is also held against the fused run's detections); each of the
+     run's kernels against its plain version on the run's own inputs, timed
+     with CUDA events; pipeline fps, kernel path and plain path in turns;
+  5. the packed-field window sums (the reference's window_sums_packed and
+     fused gather_moments) on the 640x480 B=1024 run's packed field and
+     peaks: against the plain version, and timed against the split path the
+     detector runs (paired gather + raw-moment basis sums);
+  6. the streaming run: 1024 rendered 640x480 frames through a distorted
+     camera with undistort_frames=True and sequential association, as
+     StreamingPipeline chunks of 64 against one batch (prepare_undistortion
+     + initialize + process_frames): equal validity, axes and displacement
+     paths within 1e-4, >= 50 markers in every frame; chunked and batch fps.
+The line before the last is the kernels' JSON record (each kernel's bound:
+the larger of its bytes over 3.35 TB/s and its float32 operations over 67
+TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -36,12 +50,32 @@ import subprocess
 import sys
 import time
 
-# The main path's runs: (label, rows, cols, batch, max_candidates). The
-# first two are the reference's bench sizes (bench.py:99-119,476 and
-# benchmarks/bench_highres.py); the odd K takes the pack=1 gather.
-RUNS = (("640x480", 480, 640, 1024, 96),
-        ("1080x1920", 1080, 1920, 48, 96),
-        ("640x480 K=97", 480, 640, 64, 97))
+# The main path's runs: (label, rows, cols, batch, max_candidates, backend).
+# The first two are the reference's bench sizes (bench.py:99-119,476 and
+# benchmarks/bench_highres.py); "xla" takes the detector's unfused branch on
+# the frames of the run before it; the odd K takes the pack=1 gather.
+RUNS = (("640x480", 480, 640, 1024, 96, "auto"),
+        ("1080x1920", 1080, 1920, 48, 96, "auto"),
+        ("1080x1920 unfused", 1080, 1920, 48, 96, "xla"),
+        ("640x480 K=97", 480, 640, 64, 97, "auto"))
+# The streaming run: frames, chunk size, lens distortion
+# (tests/test_undistort.py:88).
+STREAM = (1024, 64, (-0.18, 0.05, 0.0, 0.0, 0.0))
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet, 700 W
+F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, same source
+SRC = {
+    "fields": ("vision_basedsensor_tpu_torch/csrc/fields.cu",
+               "vision_basedsensor_tpu/ops/pallas/fields.py:225",
+               "vision_basedsensor_tpu/ops/pallas/fields.py:292"),
+    "gather": ("vision_basedsensor_tpu_torch/csrc/gather.cu",
+               "vision_basedsensor_tpu/ops/pallas/moments.py:429",
+               "vision_basedsensor_tpu/ops/pallas/moments.py:358"),
+    "window_sums": ("vision_basedsensor_tpu_torch/csrc/window_sums.cu",
+                    "vision_basedsensor_tpu/ops/pallas/moments.py:439",
+                    "vision_basedsensor_tpu/ops/pallas/moments.py:232",
+                    "benchmarks/gather_moments_kernel.py:152"),
+}
 
 
 def _card() -> str:
@@ -81,15 +115,36 @@ def _wall_s(fn, reps: int) -> list[float]:
     return times
 
 
+def _bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """Least time in ms for ``nbytes`` of memory traffic and ``nops`` float32
+    operations, and which of the two bounds it."""
+    t_b = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_o = 1e3 * nops / F32_OPS_PER_S
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _distinct(b: int, h: int, w: int, ys, xs, keep) -> int:
+    """Distinct in-image pixels ``(ys, xs)`` (broadcast to ``keep``'s
+    shape, a leading frame axis) where ``keep`` holds."""
+    import torch
+    keep = keep & (xs < w) & (ys < h)
+    flat = torch.where(keep, ys * w + xs, torch.full_like(keep, h * w,
+                                                          dtype=torch.long))
+    mask = torch.zeros((b, h * w + 1), dtype=torch.bool, device=keep.device)
+    mask.scatter_(1, flat.reshape(b, -1), True)
+    return int(mask[:, :h * w].sum())
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the records here")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one kernel-path batch per shape "
+                    help="profile one kernel-path batch per run "
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
@@ -97,16 +152,24 @@ def main(argv=None) -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import vision_basedsensor_tpu_torch  # noqa: F401  (sets the TF32 flags)
     from vision_basedsensor_tpu_torch.config import (PipelineConfig,
-                                                     ReconstructConfig)
+                                                     ReconstructConfig,
+                                                     TrackConfig)
+    from vision_basedsensor_tpu_torch.core.imaging import band_and_opening
     from vision_basedsensor_tpu_torch.detect import detector
+    from vision_basedsensor_tpu_torch.ops import moments as tm
     from vision_basedsensor_tpu_torch.ops.cuda import build
     from vision_basedsensor_tpu_torch.ops.cuda import fields as kf
     from vision_basedsensor_tpu_torch.ops.cuda import moments as kg
+    from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
     from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
-    from vision_basedsensor_tpu_torch.ops.moments import cut_geometry
     from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
-    from vision_basedsensor_tpu_torch.ops.peaks import select_peaks_from_cells
-    from vision_basedsensor_tpu_torch.pipeline import initialize, process_frames
+    from vision_basedsensor_tpu_torch.ops.patches import patch_origins
+    from vision_basedsensor_tpu_torch.ops.peaks import (find_peaks,
+                                                        select_peaks_from_cells)
+    from vision_basedsensor_tpu_torch.pipeline import (StreamingPipeline,
+                                                       initialize,
+                                                       prepare_undistortion,
+                                                       process_frames)
     from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
 
     dev = torch.device("cuda", 0)
@@ -124,12 +187,26 @@ def main(argv=None) -> None:
     print(f"build: {build_s:.2f} s (nvcc {build.build_seconds}) -> "
           f"{build.library_path().name} [{card}]", flush=True)
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
     records["build_s"] = build_s
 
     cfg = PipelineConfig(reconstruct=ReconstructConfig(warmup_frames=0))
     dcfg = cfg.detect
+    counters = ((kf, "fields_launches", "fields"),
+                (kg, "gather_launches", "gather"),
+                (kw, "fields_launches", "window_sums"),
+                (kw, "packed_launches", "window_sums_packed"))
+
+    def reset_counts():
+        for mod, attr, _ in counters:
+            setattr(mod, attr, 0)
+
+    def read_counts() -> dict:
+        return {name: getattr(mod, attr) for mod, attr, name in counters}
+
+    def profile_of(h):
+        return dcfg.low_res if h <= dcfg.low_res_max_rows else dcfg.high_res
 
     def fields_inputs(frames, prof):
         gray = frames.float().contiguous()
@@ -137,6 +214,15 @@ def main(argv=None) -> None:
         ncc = normxcorr_gaussian(area, prof.template_size,
                                  prof.template_sigma, binary_input=True)
         return ncc, area, gray
+
+    def unfused_inputs(ncc, area, prof, k):
+        """The unfused branch's band, opened area and peaks
+        (detect/detector.py)."""
+        band, area_open = band_and_opening(ncc, area, dcfg.ncc_threshold,
+                                           prof.band_window, dcfg.open_ksize)
+        peaks = find_peaks(ncc, dcfg.ncc_threshold, prof.peak_window, k,
+                           float(prof.peak_window))
+        return band, area_open, peaks
 
     def fields_plain(ncc, area, gray, prof):
         return kf.fused_fields_reference(ncc, area, gray, dcfg.ncc_threshold,
@@ -183,12 +269,102 @@ def main(argv=None) -> None:
               flush=True)
         return err
 
+    def sums_close(got, want, valid, what):
+        """The JAX tests' window-sums tolerance: rtol 1e-5, atol 2e-2 on
+        valid peaks, equal finite patterns. Returns the max abs error."""
+        a, b = got[valid].double(), want[valid].double()
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise AssertionError(f"{what}: finite patterns differ")
+        d = (a - b).abs()[fin]
+        tol = 2e-2 + 1e-5 * b.abs()[fin]
+        err = float(d.max()) if d.numel() else 0.0
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"{what}: kernel vs plain beyond rtol 1e-5 "
+                                 f"atol 2e-2 (max abs err {err})")
+        print(f"check {what}: within rtol 1e-5 atol 2e-2 (max abs err "
+              f"{err}, largest |sum| {float(b.abs()[fin].max())})",
+              flush=True)
+        return err
+
+    def dets_close(a, b, what):
+        """The reference's xla-vs-pallas detection tolerances
+        (tests/test_pallas_moments.py:104-114)."""
+        if not torch.equal(a.valid, b.valid):
+            raise AssertionError(f"{what}: valid differs "
+                                 f"({int((a.valid != b.valid).sum())} slots)")
+        v = a.valid
+        dxy = float((a.xy - b.xy)[v].abs().max())
+        dax = float((a.axes - b.axes)[v].abs().max())
+        print(f"{what}: valid equal, max |dxy| {dxy} px, max |daxes| {dax} "
+              "px", flush=True)
+        if dxy > 1e-3 or dax > 1e-2:
+            raise AssertionError(f"{what}: xy {dxy} > 1e-3 or axes {dax} > "
+                                 "1e-2 px")
+        return dxy, dax
+
+    def window_stats(peaks, geom, prof, h, w):
+        """(gated pixel visits, distinct gated pixels) of the window sums."""
+        start = patch_origins(h, w, peaks.xy, prof.patch_size)
+        gx, gy, _, _, keep = tm.patch_cut(start.float(), peaks, geom, prof)
+        n = _distinct(peaks.xy.shape[0], h, w, gy.long(), gx.long(), keep)
+        return int(keep.sum()), n
+
+    def sums_bound(peaks, geom, prof, h, w, packed):
+        """Least time of the window sums on this run's peaks.
+
+        Bytes: the distinct gated pixels read once (12 B from the three
+        fields, 4 B packed), each peak's xy (8 B) and geometry (36 B) read
+        and its 28 sums written (112 B).
+        Float32 operations, each shared product counted once:
+          per patch row, 51 to find the row's gated run of columns (the cut
+            is convex, so it meets a row in one run): 3 for the disk's ends,
+            4 per halfplane, and the exact 18-op gate (dx, dy 2; d2 3; its
+            test 1; 4 per halfplane) at both ends, so no other patch pixel
+            needs a test;
+          per gated pixel, 59: dx 1, lo/hi 2, weight 4 (sub, div, clamp),
+            soft remap 4 (when soft_floor > 0), half level 1, 21 products
+            (band 2, area 5, w 9, half level 5), 26 sums; plus 8 for the
+            exact unpack in packed mode.
+        A few operations per peak (contrast, rhs slack) are left out."""
+        b, k = peaks.xy.shape[:2]
+        visits, distinct = window_stats(peaks, geom, prof, h, w)
+        nbytes = (4 if packed else 12) * distinct + b * k * (8 + 36 + 4 * 28)
+        per_px = (1 + 2 + 4 + (4 if prof.soft_floor > 0.0 else 0) + 1 + 21
+                  + 26 + (8 if packed else 0))
+        nops = 51 * b * k * prof.patch_size + per_px * visits
+        return _bound(nbytes, nops)
+
+    def gather_bound(start, prof, pack, h, w):
+        """Bytes: the output tensor written and the distinct in-image
+        window pixels read; a copy does no arithmetic."""
+        b, k = start.shape[:2]
+        p = prof.patch_size
+        cols = 64 if pack == 2 else 128
+        r = torch.arange(p, device=start.device)
+        c = torch.arange(cols, device=start.device)
+        ys = start[..., 1, None, None].long() + r[:, None]
+        xs = start[..., 0, None, None].long() + c[None, :]
+        keep = torch.ones((b, k, p, cols), dtype=torch.bool,
+                          device=start.device)
+        distinct = _distinct(b, h, w, ys, xs, keep)
+        return _bound(b * (k // pack) * p * 128 * 4 + 4 * distinct, 0.0)
+
+    def fields_bound(b, h, w, prof):
+        """Bytes: ncc, area, gray read, packed written (16 B/px), the cells
+        (8 B each); operations: the windowed min/max passes, counted as
+        2 x (band + peak window) + 4 x open window + 8 per pixel."""
+        hc, wc = -(-h // 8), -(-w // 8)
+        ops_px = (2 * (prof.band_window + prof.peak_window)
+                  + 4 * dcfg.open_ksize + 8)
+        return _bound(b * h * w * 16 + b * hc * wc * 8, b * h * w * ops_px)
+
     @contextlib.contextmanager
     def plain_kernels():
         """Route the detector through the kernels' plain versions (for the
         plain-path comparison on the card)."""
         saved = (detector.fused_fields, detector.gather_windows_paired,
-                 detector.gather_windows)
+                 detector.gather_windows, detector.window_sums)
 
         def ff(ncc, area, gray, thr, open_k, prof):
             return kf.fused_fields_reference(ncc, area, gray, thr, open_k, prof)
@@ -198,14 +374,15 @@ def main(argv=None) -> None:
             lambda packed, peaks, geom, prof: gather_plain(packed, peaks, prof, 2))
         detector.gather_windows = (
             lambda packed, peaks, geom, prof: gather_plain(packed, peaks, prof, 1))
+        detector.window_sums = tm.window_sums_xla
         try:
             yield
         finally:
             (detector.fused_fields, detector.gather_windows_paired,
-             detector.gather_windows) = saved
+             detector.gather_windows, detector.window_sums) = saved
 
-    def render(h, w, batch):
-        scene = default_scene(h, w, device=dev)
+    def render(h, w, batch, dist=None):
+        scene = default_scene(h, w, dist=dist, device=dev)
         d = torch.zeros((batch, 65, 3), device=dev)
         d[:, :, 2] = -0.002 * torch.arange(batch, device=dev)[:, None]
         t = time.perf_counter()
@@ -217,31 +394,31 @@ def main(argv=None) -> None:
 
     kernels = []
 
-    def main_path(h, w, batch, label, run_cfg):
+    def main_path(scene, frames, label, run_cfg, expect):
         """Counted run of the main path, checks, plain-path comparison and
-        timings. Returns the phase record."""
-        scene, frames = render(h, w, batch)
+        timings. ``expect`` names the kernels this branch launches. Returns
+        the phase record and the run's outputs."""
+        batch, h, w = frames.shape
         cam = scene.cam
-        rec: dict = {"shape": [batch, h, w]}
+        rec: dict = {"shape": [batch, h, w], "backend": run_cfg.detect.backend}
         # Warm-up (cuBLAS handles, allocator), not counted.
         ref = initialize(frames[0], run_cfg)
         process_frames(frames[:2], ref, cam, run_cfg)
         torch.cuda.synchronize()
 
-        kf.fields_launches = 0
-        kg.gather_launches = 0
+        reset_counts()
         t = time.perf_counter()
         ref = initialize(frames[0], run_cfg)
         out = process_frames(frames, ref, cam, run_cfg)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t
-        launches = {"fields": kf.fields_launches, "gather": kg.gather_launches}
+        launches = read_counts()
         rec["launches"] = launches
         print(f"{label}: main path ran in {first_s:.3f} s (first counted "
               f"run); launches {launches} [{card}]", flush=True)
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"{label}: a kernel of the path was not "
-                                 f"launched: {launches}")
+        if any((n > 0) != (k in expect) for k, n in launches.items()):
+            raise AssertionError(f"{label}: expected launches of exactly "
+                                 f"{sorted(expect)}, got {launches}")
 
         n_ref = int(ref.valid.sum())
         tracked = out.tracked.valid.sum(-1)
@@ -284,15 +461,22 @@ def main(argv=None) -> None:
             ref_p = initialize(frames[0], run_cfg)
             out_p = process_frames(frames, ref_p, cam, run_cfg)
             torch.cuda.synchronize()
-        for name in out.detections._fields:
-            a, b = getattr(out.detections, name), getattr(out_p.detections, name)
-            if not torch.equal(a, b):
-                raise AssertionError(f"{label}: detections.{name} differ "
-                                     "between the kernel and plain paths")
-        if not torch.equal(out.contact.tilt_deg, out_p.contact.tilt_deg):
-            raise AssertionError(f"{label}: tilt differs kernel vs plain")
-        print(f"{label}: kernel path == plain path (detections, tilt)",
-              flush=True)
+        if "window_sums" in expect:
+            # Sums in another order: not bit for bit.
+            rec["kernel_vs_plain"] = dets_close(
+                out.detections, out_p.detections,
+                f"{label}: kernel path vs plain path")
+        else:
+            for name in out.detections._fields:
+                a, b = getattr(out.detections, name), getattr(out_p.detections,
+                                                              name)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: detections.{name} differ "
+                                         "between the kernel and plain paths")
+            if not torch.equal(out.contact.tilt_deg, out_p.contact.tilt_deg):
+                raise AssertionError(f"{label}: tilt differs kernel vs plain")
+            print(f"{label}: kernel path == plain path (detections, tilt)",
+                  flush=True)
 
         # Pipeline throughput: two batches per turn in the turns kernel,
         # plain, plain, kernel; fps is the batch over the median of a path's
@@ -347,8 +531,7 @@ def main(argv=None) -> None:
         if args.profile:
             rec["profile"] = profile_batch(run, label,
                                            statistics.median(s_k))
-        rec["frames"] = frames
-        return rec
+        return rec, out
 
     def profile_batch(run, label, batch_s):
         """Device kernel time of one kernel-path batch by kernel name, and
@@ -383,71 +566,257 @@ def main(argv=None) -> None:
                 "batch_ms": 1e3 * batch_s,
                 "top": [[k, n, t / 1e3] for t, n, k in rows[:40]]}
 
-    # -- kernels vs plain at an unaligned shape ---------------------------------
-    _, fr = render(437, 467, 4)
-    ncc, area, gray = fields_inputs(fr, dcfg.low_res)
-    (packed, cval, cidx), _ = check_fields(ncc, area, gray, dcfg.low_res,
-                                           "4x437x467")
-    peaks = select_peaks_from_cells(cval, cidx, 467, dcfg.max_candidates,
-                                    float(dcfg.low_res.peak_window))
-    for pack in (1, 2):
-        check_gather(packed, peaks, dcfg.low_res, pack, "4x437x467")
+    def record(name, kind, replaces, launches, err, ms, plain_ms, bound):
+        kernels.append(dict(
+            name=name, route="cuda", source=SRC[kind][0], replaces=replaces,
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=None))
 
-    # -- main path: the two bench sizes and an odd K ---------------------------
-    for label, h, w, batch, k in RUNS:
+    def packed_phase(packed, peaks, geom, prof, what, launches):
+        """The packed-field window sums (K6 window_sums_packed, K7
+        gather_moments: one kernel) on a fused run's own packed field and
+        peaks: against the plain version, then timed in turns against the
+        split path the detector runs on the same inputs."""
+        w = packed.shape[2]
+        want = kw.window_sums_packed_reference(packed, peaks, geom, prof)
+        err6 = sums_close(kw.window_sums_packed(packed, peaks, geom, prof),
+                          want, peaks.valid, f"window_sums_packed {what}")
+        err7 = sums_close(kw.gather_moments(packed, peaks, geom, prof),
+                          want, peaks.valid, f"gather_moments {what}")
+        del want
+        torch.cuda.empty_cache()
+
+        def fused6():
+            kw.window_sums_packed(packed, peaks, geom, prof)
+
+        def fused7():
+            kw.gather_moments(packed, peaks, geom, prof)
+
+        def split():
+            patches, pstart = kg.gather_windows_paired(packed, peaks, geom,
+                                                       prof)
+            tm.moments_from_patches_paired_mxu(patches, pstart, peaks, geom,
+                                               prof, w)
+
+        def plain():
+            kw.window_sums_packed_reference(packed, peaks, geom, prof)
+
+        n_it = 10
+        ms = {"packed": [_event_ms(fused6, n_it)], "split": []}
+        ms["split"] += [_event_ms(split, n_it), _event_ms(split, n_it)]
+        ms["packed"].append(_event_ms(fused6, n_it))
+        gm_ms = _event_ms(fused7, n_it)
+        plain_ms = _event_ms(plain, 3)
+        bound = sums_bound(peaks, geom, prof, packed.shape[1], w, True)
+        fused_ms = statistics.mean(ms["packed"])
+        split_ms = statistics.mean(ms["split"])
+        print(f"window sums from the packed field ({what}): packed-field "
+              f"kernel {fused_ms:.3f} ms (turns {ms['packed']}), "
+              f"gather_moments entry {gm_ms:.3f} ms, split path (paired "
+              f"gather + raw-moment basis) {split_ms:.3f} ms (turns "
+              f"{ms['split']}), plain {plain_ms:.3f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+        n = launches["window_sums_packed"]
+        record(f"window_sums_packed {what}", "window_sums",
+               SRC["window_sums"][2], n, err6, fused_ms, plain_ms, bound)
+        record(f"gather_moments {what}", "window_sums", SRC["window_sums"][3],
+               n, err7, gm_ms, plain_ms, bound)
+        return {"packed_ms": ms["packed"], "split_ms": ms["split"],
+                "gather_moments_ms": gm_ms, "plain_ms": plain_ms,
+                "bound": bound, "max_abs_err": [err6, err7]}
+
+    def stream_phase():
+        """StreamingPipeline chunks against one batch on distorted frames,
+        with the undistort preprocess and sequential association."""
+        n, chunk, dist = STREAM
+        scene, frames = render(480, 640, n, dist=np.asarray(dist))
+        h, w = frames.shape[1:]
+        scfg = PipelineConfig(
+            undistort_frames=True,
+            track=TrackConfig(association_mode="sequential"),
+            reconstruct=ReconstructConfig(warmup_frames=0))
+
+        def batch_run():
+            src_map, new_cam = prepare_undistortion(scene.cam, h, w, scfg)
+            ref = initialize(frames[0], scfg, rectify_map=src_map)
+            return process_frames(frames, ref, new_cam, scfg,
+                                  rectify_map=src_map)
+
+        def chunked_run():
+            sp = StreamingPipeline(scene.cam, scfg, device=dev)
+            return [sp.process(frames[i:i + chunk])
+                    for i in range(0, n, chunk)]
+
+        StreamingPipeline(scene.cam, scfg, device=dev).process(frames[:chunk])
+        torch.cuda.synchronize()                             # warm-up
+        rec: dict = {"frames": n, "chunk": chunk, "dist": list(dist)}
+        reset_counts()
+        outs = chunked_run()
+        torch.cuda.synchronize()
+        rec["launches_chunked"] = read_counts()
+        reset_counts()
+        bout = batch_run()
+        torch.cuda.synchronize()
+        rec["launches_batch"] = read_counts()
+        print(f"stream: launches chunked {rec['launches_chunked']}, batch "
+              f"{rec['launches_batch']} [{card}]", flush=True)
+        for which in ("launches_chunked", "launches_batch"):
+            if any((v > 0) != (k in ("fields", "gather"))
+                   for k, v in rec[which].items()):
+                raise AssertionError(f"stream: {which} {rec[which]}: "
+                                     "expected the fused branch's kernels")
+
+        def cat(get):
+            return torch.cat([get(o) for o in outs])
+
+        valid = cat(lambda o: o.tracked.valid)
+        diffs = {name: float((cat(get) - get(bout)).abs().max())
+                 for name, get in (
+                     ("axes", lambda o: o.tracked.axes),
+                     ("cum_path", lambda o: o.recon.cum_path),
+                     ("from_first_norm", lambda o: o.recon.from_first_norm))}
+        n_diff = int((valid != bout.tracked.valid).sum())
+        tracked = valid.sum(-1)
+        rec.update(max_abs_diff=diffs, valid_slots_differing=n_diff,
+                   tracked_min=int(tracked.min()),
+                   tracked_max=int(tracked.max()),
+                   from_first_z_last_mm=float(
+                       bout.recon.from_first[-1, :, 2].mean()))
+        print(f"stream: chunks of {chunk} vs one batch of {n}: valid slots "
+              f"differing {n_diff}; max |diff| {diffs}; tracked per frame min "
+              f"{int(tracked.min())} max {int(tracked.max())}; mean dz at "
+              f"last frame {rec['from_first_z_last_mm']:.4f} mm", flush=True)
+        if n_diff:
+            raise AssertionError("stream: tracked.valid differs between "
+                                 "chunks and one batch")
+        if max(diffs.values()) > 1e-4:
+            raise AssertionError(f"stream: chunks vs batch beyond 1e-4: "
+                                 f"{diffs}")
+        if int(tracked.min()) < 50:
+            raise AssertionError(f"stream: fewer than 50 markers tracked in "
+                                 f"a frame ({int(tracked.min())})")
+        if not bool(torch.isfinite(bout.contact.tilt_deg).all()):
+            raise AssertionError("stream: non-finite tilt")
+
+        s_c = _wall_s(chunked_run, 1)
+        s_b = _wall_s(batch_run, 1)
+        s_b += _wall_s(batch_run, 1)
+        s_c += _wall_s(chunked_run, 1)
+        rec.update(fps_chunked=n / statistics.median(s_c),
+                   fps_batch=n / statistics.median(s_b), s_chunked=s_c,
+                   s_batch=s_b)
+        print(f"stream: fps chunked {rec['fps_chunked']:.1f} (s "
+              + ", ".join(f"{t:.4f}" for t in s_c) + f"), batch "
+              f"{rec['fps_batch']:.1f} (s " + ", ".join(f"{t:.4f}" for t in s_b)
+              + f") [{card}]", flush=True)
+        return rec
+
+    # -- kernels vs plain at the reference sensor's unaligned shape -----------
+    _, fr = render(437, 467, 4)
+    lo = dcfg.low_res
+    ncc, area, gray = fields_inputs(fr, lo)
+    (packed, cval, cidx), _ = check_fields(ncc, area, gray, lo, "4x437x467")
+    peaks = select_peaks_from_cells(cval, cidx, 467, dcfg.max_candidates,
+                                    float(lo.peak_window))
+    for pack in (1, 2):
+        check_gather(packed, peaks, lo, pack, "4x437x467")
+    band, area_open, upeaks = unfused_inputs(ncc, area, lo,
+                                             dcfg.max_candidates)
+    ugeom = tm.cut_geometry(upeaks)
+    sums_close(kw.window_sums(band, area_open, gray, upeaks, ugeom, lo),
+               tm.window_sums_xla(band, area_open, gray, upeaks, ugeom, lo),
+               upeaks.valid, "window_sums 4x437x467")
+
+    # -- main path: the two bench sizes, the unfused branch and an odd K ------
+    frames_of: dict = {}
+    fused_out: dict = {}
+    for label, h, w, batch, k, backend in RUNS:
         run_cfg = dataclasses.replace(cfg, detect=dataclasses.replace(
-            dcfg, max_candidates=k))
-        prof = dcfg.low_res if h <= dcfg.low_res_max_rows else dcfg.high_res
+            dcfg, max_candidates=k, backend=backend))
+        prof = profile_of(h)
+        fused = detector.takes_fused_branch(run_cfg.detect, h, w, prof)
         # The detector's rule (detect/detector.py): paired windows need an
         # even K and a patch that fits the 64-lane slot.
         path_pack = 2 if k % 2 == 0 and prof.patch_size <= 64 else 1
-        rec = main_path(h, w, batch, label, run_cfg)
-        frames = rec.pop("frames")
+        key = (h, w, batch)
+        if key not in frames_of:
+            frames_of.clear()
+            frames_of[key] = render(h, w, batch)
+        scene, frames = frames_of[key]
+        expect = {"fields", "gather"} if fused else {"window_sums"}
+        rec, out = main_path(scene, frames, label, run_cfg, expect)
         what = f"{batch}x{h}x{w} K={k}"
+        n_it = 10 if batch * h * w <= 2 ** 29 else 5
         ncc, area, gray = fields_inputs(frames, prof)
+        if not fused:
+            fused_det = fused_out.pop(key)
+            rec["vs_fused"] = dets_close(
+                out.detections, fused_det,
+                f"{label}: unfused vs fused branch detections")
+            band, area_open, peaks = unfused_inputs(ncc, area, prof, k)
+            geom = tm.cut_geometry(peaks)
+            w_err = sums_close(
+                kw.window_sums(band, area_open, gray, peaks, geom, prof),
+                tm.window_sums_xla(band, area_open, gray, peaks, geom, prof),
+                peaks.valid, f"window_sums {what}")
+            w_ms = _event_ms(lambda: kw.window_sums(
+                band, area_open, gray, peaks, geom, prof), n_it)
+            w_plain = _event_ms(lambda: tm.window_sums_xla(
+                band, area_open, gray, peaks, geom, prof), n_it)
+            w_bound = sums_bound(peaks, geom, prof, h, w, False)
+            rec["kernel_ms"] = {"window_sums": [w_ms, w_plain],
+                                "bound": w_bound}
+            print(f"{label}: window_sums kernel {w_ms:.3f} ms vs plain "
+                  f"{w_plain:.3f} ms; bound {w_bound[0]:.4f} ms "
+                  f"({w_bound[1]}) ({what}) [{card}]", flush=True)
+            record(f"window_sums {what}", "window_sums", SRC["window_sums"][1],
+                   rec["launches"]["window_sums"], w_err, w_ms, w_plain,
+                   w_bound)
+            records["phases"][label] = rec
+            del band, area_open, peaks, geom
+            continue
+        fused_out[key] = out.detections
         (packed, cval, cidx), f_err = check_fields(ncc, area, gray, prof, what)
         peaks = select_peaks_from_cells(cval, cidx, w, k,
                                         float(prof.peak_window))
-        geom = cut_geometry(peaks)
+        geom = tm.cut_geometry(peaks)
         packs = (1, 2) if k % 2 == 0 else (1,)
         g_err = {p: check_gather(packed, peaks, prof, p, what) for p in packs}
-        n_it = 10 if batch * h * w <= 2 ** 29 else 5
         f_ms = _event_ms(lambda: fields_kernel(ncc, area, gray, prof), n_it)
         f_plain = _event_ms(lambda: fields_plain(ncc, area, gray, prof), n_it)
         g_ms = _event_ms(lambda: kg.gather_windows(
             packed, peaks, geom, prof, pack=path_pack), n_it)
         g_plain = _event_ms(
             lambda: gather_plain(packed, peaks, prof, path_pack), n_it)
-        rec["kernel_ms"] = {"fields": [f_ms, f_plain],
-                            f"gather_pack{path_pack}": [g_ms, g_plain]}
+        f_bound = fields_bound(batch, h, w, prof)
+        g_bound = gather_bound(kg._prep(h, w, peaks, prof), prof, path_pack,
+                               h, w)
+        rec["kernel_ms"] = {"fields": [f_ms, f_plain, f_bound],
+                            f"gather_pack{path_pack}": [g_ms, g_plain,
+                                                        g_bound]}
         print(f"{label}: fields kernel {f_ms:.3f} ms vs plain {f_plain:.3f} "
-              f"ms; gather pack={path_pack} {g_ms:.3f} vs {g_plain:.3f} ms "
+              f"ms, bound {f_bound[0]:.4f} ms; gather pack={path_pack} "
+              f"{g_ms:.3f} vs {g_plain:.3f} ms, bound {g_bound[0]:.4f} ms "
               f"({what}) [{card}]", flush=True)
+        tiled = h * w > 960 * 1280
+        record(f"{'fused_fields_tiled' if tiled else 'fused_fields'} {what}",
+               "fields", SRC["fields"][2 if tiled else 1],
+               rec["launches"]["fields"], f_err, f_ms, f_plain, f_bound)
+        record(f"{'gather_windows_paired' if path_pack == 2 else 'gather_windows pack=1'} {what}",
+               "gather", SRC["gather"][1 if path_pack == 2 else 2],
+               rec["launches"]["gather"], g_err[path_pack], g_ms, g_plain,
+               g_bound)
+        if label == RUNS[0][0]:
+            records["phases"]["window_sums_packed"] = packed_phase(
+                packed, peaks, geom, prof, what, rec["launches"])
         records["phases"][label] = rec
-        fields_name, fields_src = (
-            ("fused_fields", "vision_basedsensor_tpu/ops/pallas/fields.py:225")
-            if h * w <= 960 * 1280 else
-            ("fused_fields_tiled",
-             "vision_basedsensor_tpu/ops/pallas/fields.py:292"))
-        gather_name, gather_src = (
-            ("gather_windows_paired",
-             "vision_basedsensor_tpu/ops/pallas/moments.py:429")
-            if path_pack == 2 else
-            ("gather_windows pack=1",
-             "vision_basedsensor_tpu/ops/pallas/moments.py:358"))
-        kernels.append(dict(
-            name=f"{fields_name} {what}", route="cuda",
-            source="vision_basedsensor_tpu_torch/csrc/fields.cu",
-            replaces=fields_src, launches=rec["launches"]["fields"],
-            max_abs_err=f_err, ms=f_ms, plain_ms=f_plain))
-        kernels.append(dict(
-            name=f"{gather_name} {what}", route="cuda",
-            source="vision_basedsensor_tpu_torch/csrc/gather.cu",
-            replaces=gather_src, launches=rec["launches"]["gather"],
-            max_abs_err=g_err[path_pack], ms=g_ms, plain_ms=g_plain))
-        del frames, ncc, area, gray, packed, cval, cidx, peaks, geom
+        del ncc, area, gray, packed, cval, cidx, peaks, geom
         torch.cuda.empty_cache()
+    frames_of.clear()
+    fused_out.clear()
+    torch.cuda.empty_cache()
 
+    records["phases"]["stream"] = stream_phase()
     records["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -81,6 +81,86 @@ def test_gather_kernel_matches_plain(cuda, profile, hw, pack, k):
     assert torch.equal(got, want)
 
 
+def _sums_close(got, want, valid):
+    """The JAX tests' window-sums tolerance (rtol 1e-5, atol 2e-2 on valid
+    peaks, equal finite patterns)."""
+    a, b = got[valid].cpu().numpy(), want[valid].cpu().numpy()
+    fin = np.isfinite(b)
+    np.testing.assert_array_equal(np.isfinite(a), fin)
+    np.testing.assert_allclose(a[fin], b[fin], rtol=1e-5, atol=2e-2)
+
+
+@pytest.mark.parametrize("profile,hw", [("low_res", (480, 640)),
+                                        ("high_res", (1080, 1920)),
+                                        ("low_res", (437, 467))])
+@pytest.mark.parametrize("packed", [False, True])
+def test_window_sums_kernel_matches_plain(cuda, profile, hw, packed):
+    from vision_basedsensor_tpu_torch.ops import moments as tm
+    from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
+
+    h, w = hw
+    prof = getattr(DetectConfig(), profile)
+    rng = np.random.default_rng(4)
+    b, k = 2, 96
+    band = torch.as_tensor(rng.random((b, h, w)) > 0.7, dtype=torch.float32,
+                           device=cuda)
+    area = torch.as_tensor(rng.random((b, h, w)) > 0.4, dtype=torch.float32,
+                           device=cuda)
+    # Fractional gray, as after undistortion.
+    gray = torch.as_tensor(rng.random((b, h, w)) * 255.0, dtype=torch.float32,
+                           device=cuda)
+    peaks = _peaks(rng, b, k, h, w, cuda)
+    peaks = peaks._replace(xy=peaks.xy + torch.as_tensor(
+        rng.random((b, k, 2)) - 0.5, dtype=torch.float32, device=cuda))
+    peaks = peaks._replace(valid=torch.as_tensor(rng.random((b, k)) > 0.2,
+                                                 device=cuda))
+    geom = tm.cut_geometry(peaks)
+    want = tm.window_sums_xla(band, area, gray, peaks, geom, prof)
+    if packed:
+        before = kw.packed_launches
+        got = kw.window_sums_packed(gray + 256.0 * band + 512.0 * area, peaks,
+                                    geom, prof)
+        assert kw.packed_launches == before + 1
+    else:
+        before = kw.fields_launches
+        got = kw.window_sums(band, area, gray, peaks, geom, prof)
+        assert kw.fields_launches == before + 1
+    torch.cuda.synchronize()
+    _sums_close(got, want, peaks.valid)
+
+
+def test_detect_unfused_kernel_path_matches_plain_path(cuda):
+    """The unfused branch (backend="xla") on rendered frames, with and
+    without the window-sums kernel: the reference's xla-vs-pallas
+    tolerances (valid equal, xy 1e-3 px, axes 1e-2 px)."""
+    import dataclasses
+
+    from vision_basedsensor_tpu_torch.detect import detector
+    from vision_basedsensor_tpu_torch.ops import moments as tm
+    from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
+    from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
+
+    scene = default_scene(480, 640, device=cuda)
+    d = torch.zeros((4, 65, 3), device=cuda)
+    d[:, :, 2] = -0.3 * torch.arange(4, device=cuda)[:, None]
+    frames = render_frames(scene, d)
+    cfg = dataclasses.replace(DetectConfig(), backend="xla")
+    before = kw.fields_launches
+    got = detector.detect_markers(frames, cfg)
+    assert kw.fields_launches == before + 1
+    saved = detector.window_sums
+    detector.window_sums = tm.window_sums_xla
+    try:
+        want = detector.detect_markers(frames, cfg)
+    finally:
+        detector.window_sums = saved
+    assert torch.equal(got.valid, want.valid)
+    assert int(got.valid.sum(-1).min()) >= 65
+    v = want.valid
+    assert float((got.xy - want.xy)[v].abs().max()) <= 1e-3
+    assert float((got.axes - want.axes)[v].abs().max()) <= 1e-2
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     cfg = DetectConfig()
     ncc, area, gray = _random_fields(np.random.default_rng(3), 1, 64, 96, cuda)
@@ -91,6 +171,26 @@ def test_wrappers_refuse_bad_inputs(cuda):
                         area, gray, 0.1, 5, cfg.low_res)
     with pytest.raises(ValueError):
         kf.fused_fields(ncc, area.cpu(), gray, 0.1, 5, cfg.low_res)
+
+    from vision_basedsensor_tpu_torch.ops import moments as tm
+    from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
+
+    peaks = _peaks(np.random.default_rng(5), 1, 8, 64, 96, cuda)
+    geom = tm.cut_geometry(peaks)
+    with pytest.raises(ValueError):
+        kw.window_sums(area, area.double(), gray, peaks, geom, cfg.low_res)
+    with pytest.raises(ValueError):
+        kw.window_sums_packed(gray.transpose(1, 2).contiguous().transpose(1, 2),
+                              peaks, geom, cfg.low_res)
+    with pytest.raises(ValueError):
+        kw.window_sums(area, area, gray, peaks._replace(xy=peaks.xy.cpu()),
+                       geom, cfg.low_res)
+    with pytest.raises(ValueError):
+        kw.window_sums(area, area, gray, peaks,
+                       geom._replace(rhs=geom.rhs.cpu()), cfg.low_res)
+    with pytest.raises(ValueError):
+        kw.window_sums_packed(gray, peaks, geom._replace(ex=geom.ex[..., :2]),
+                              cfg.low_res)
 
 
 @pytest.mark.parametrize("k", [96, 97])

@@ -13,7 +13,9 @@ across as numpy arrays and JSON.
 
 Functions are eager and batched: ``jit`` disappears, ``vmap`` becomes a
 written-out leading batch axis, ``lax.scan``/``fori_loop`` become Python
-loops. The device is taken from the input tensors.
+loops. Functions take the device of their input tensors; the user-facing
+constructors build on the card unless given ``device="cpu"``
+(``core/device.py``).
 """
 import torch
 
@@ -28,11 +30,13 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
-__all__ = ["initialize", "process_frames", "run_video", "__version__"]
+__all__ = ["initialize", "process_frames", "run_video", "StreamingPipeline",
+           "__version__"]
 
 
 def __getattr__(name):  # lazy, like the JAX package's top level
-    if name in ("initialize", "process_frames", "run_video"):
+    if name in ("initialize", "process_frames", "run_video",
+                "StreamingPipeline"):
         from vision_basedsensor_tpu_torch import pipeline
         return getattr(pipeline, name)
     raise AttributeError(name)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
+
 
 class CameraModel(NamedTuple):
     """Intrinsics (+ optional extrinsics) of a pinhole camera; every field
@@ -29,7 +31,9 @@ class CameraModel(NamedTuple):
 
     @classmethod
     def create(cls, fx, fy, cx, cy, skew=0.0, dist=None, R_wc=None, T_wc=None,
-               dtype=torch.float32, device=None) -> "CameraModel":
+               dtype=torch.float32, device=CUDA) -> "CameraModel":
+        device = resolve(device)
+
         def t(v):
             return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
                                    device=device)

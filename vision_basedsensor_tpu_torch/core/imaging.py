@@ -127,6 +127,17 @@ def morph_open(mask: torch.Tensor, ksize: int) -> torch.Tensor:
     return max_filter(min_filter(mask, ksize), ksize)
 
 
+def band_and_opening(ncc: torch.Tensor, area: torch.Tensor, threshold: float,
+                     band_window: int, open_ksize: int):
+    """The boundary band of the NCC mask (mask pixels whose
+    ``band_window`` neighbourhood touches background) and the opened area
+    mask: the fields the fused field kernel packs, and the detector's
+    unfused-branch inputs."""
+    m = (ncc > threshold).float()
+    band = m * (min_filter(m, band_window) < 0.5).float()
+    return band, morph_open(area.float(), int(open_ksize))
+
+
 def frame_hw(frames) -> tuple[int, int]:
     """(H, W) of a frame array, channel-last aware (trailing dim <= 4)."""
     if frames.ndim >= 3 and frames.shape[-1] <= 4:

@@ -1,12 +1,18 @@
 """2D marker detection: batched frames -> fixed-size candidate sets.
 
-Port of ``vision_basedsensor_tpu/detect/detector.py``. Every frame shape
-takes the reference's fused branch (``detector.py:174-221``): DoG area mask
--> binary NCC -> fused field kernel (``ops/cuda/fields.py``) -> top-k over
-cells -> Voronoi cut geometry -> window gather kernel
-(``ops/cuda/moments.py``, paired when K is even and the patch is <= 64 px)
--> batched moment sums -> ``finalize`` and occlusion completion -> gates.
-The CUDA kernels need no TPU alignment, so there is no XLA fallback branch.
+Port of ``vision_basedsensor_tpu/detect/detector.py``: DoG area mask ->
+binary NCC, then one of the reference's two branches, chosen by its rule
+(:func:`takes_fused_branch`):
+
+* fused (``detector.py:174-221``): fused field kernel
+  (``ops/cuda/fields.py``) -> top-k over cells -> Voronoi cut geometry ->
+  window gather kernel (``ops/cuda/moments.py``, paired when K is even and
+  the patch is <= 64 px) -> batched moment sums;
+* unfused (``:222-239``): band and opening by windowed min/max filters ->
+  ``find_peaks`` -> cut geometry -> the window-sums kernel
+  (``ops/cuda/window_sums.py``);
+
+then ``finalize``, occlusion completion and the gates.
 """
 from __future__ import annotations
 
@@ -15,10 +21,12 @@ from typing import NamedTuple
 import torch
 
 from vision_basedsensor_tpu_torch.config import DetectConfig, DetectProfile
-from vision_basedsensor_tpu_torch.core.imaging import to_grayscale
+from vision_basedsensor_tpu_torch.core.imaging import (band_and_opening,
+                                                       to_grayscale)
 from vision_basedsensor_tpu_torch.ops.cuda.fields import fused_fields
 from vision_basedsensor_tpu_torch.ops.cuda.moments import (gather_windows,
                                                            gather_windows_paired)
+from vision_basedsensor_tpu_torch.ops.cuda.window_sums import window_sums
 from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
 from vision_basedsensor_tpu_torch.ops.moments import (
     complete_occluded,
@@ -29,7 +37,43 @@ from vision_basedsensor_tpu_torch.ops.moments import (
     moments_from_patches_paired_mxu,
 )
 from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
-from vision_basedsensor_tpu_torch.ops.peaks import select_peaks_from_cells
+from vision_basedsensor_tpu_torch.ops.peaks import (find_peaks,
+                                                    select_peaks_from_cells)
+
+# The reference's row-tiled field kernel halo (ops/pallas/fields.py:164).
+# The port's fields kernel has no halo limit and its window kernels no
+# alignment rule; the reference's dispatch is mirrored only so that every
+# configuration and frame shape takes the branch the reference takes.
+HALO = 8
+
+
+def resolve_backend(cfg: DetectConfig, h: int, w: int,
+                    profile: DetectProfile) -> str:
+    """The reference's ``_resolve_backend`` (``detector.py:52-68``), except
+    that ``"auto"`` means ``"pallas"`` on every device, so that the CPU and
+    the card take the same branch."""
+    backend = "pallas" if cfg.backend == "auto" else cfg.backend
+    if backend == "pallas" and (w % 128 != 0 or w < 256 or h % 8 != 0
+                                or h < profile.patch_size + 8):
+        backend = "xla"
+    return backend
+
+
+def fits_fused(cfg: DetectConfig, h: int, w: int,
+               profile: DetectProfile) -> bool:
+    """The reference's ``fits_fused`` (``detector.py:170-173``): whole frames
+    up to 960x1280, larger ones only when every window fits the halo."""
+    return (h * w <= 960 * 1280
+            or (profile.band_window // 2 <= HALO
+                and profile.peak_window // 2 <= HALO
+                and 2 * (cfg.open_ksize // 2) <= HALO))
+
+
+def takes_fused_branch(cfg: DetectConfig, h: int, w: int,
+                       profile: DetectProfile) -> bool:
+    """Whether ``(h, w)`` frames take the fused branch."""
+    return (resolve_backend(cfg, h, w, profile) == "pallas"
+            and fits_fused(cfg, h, w, profile))
 
 
 class Detections(NamedTuple):
@@ -107,23 +151,37 @@ def detect_markers_and_scale(frames: torch.Tensor, cfg: DetectConfig,
     area = dog_area_mask(gray, profile, cfg.dog_offset).float()
     ncc = normxcorr_gaussian(area, profile.template_size,
                              profile.template_sigma, binary_input=True)
-    w = gray.shape[-1]
-    packed, cval, cidx = fused_fields(ncc, area, gray.contiguous(),
-                                      cfg.ncc_threshold, cfg.open_ksize,
-                                      profile)
-    peaks = select_peaks_from_cells(cval, cidx, w, cfg.max_candidates,
-                                    float(profile.peak_window))
-    geom = cut_geometry(peaks)
-    # Paired windows (two peaks per 128-lane row) need an even K and a
-    # patch that fits the 64-lane slot (detector.py:207).
-    if cfg.max_candidates % 2 == 0 and profile.patch_size <= 64:
-        patches, pstart = gather_windows_paired(packed, peaks, geom, profile)
-        paired_fn = (moments_from_patches_paired_mxu if cfg.moment_mxu_basis
-                     else moments_from_patches_paired)
-        sums = paired_fn(patches, pstart, peaks, geom, profile, w)
+    gray = gray.contiguous()
+    h, w = gray.shape[-2:]
+    if takes_fused_branch(cfg, h, w, profile):
+        packed, cval, cidx = fused_fields(ncc, area, gray, cfg.ncc_threshold,
+                                          cfg.open_ksize, profile)
+        peaks = select_peaks_from_cells(cval, cidx, w, cfg.max_candidates,
+                                        float(profile.peak_window))
+        geom = cut_geometry(peaks)
+        # Paired windows (two peaks per 128-lane row) need an even K and a
+        # patch that fits the 64-lane slot (detector.py:207).
+        if cfg.max_candidates % 2 == 0 and profile.patch_size <= 64:
+            patches, pstart = gather_windows_paired(packed, peaks, geom,
+                                                    profile)
+            paired_fn = (moments_from_patches_paired_mxu
+                         if cfg.moment_mxu_basis
+                         else moments_from_patches_paired)
+            sums = paired_fn(patches, pstart, peaks, geom, profile, w)
+        else:
+            patches, pstart = gather_windows(packed, peaks, geom, profile)
+            sums = moments_from_patches(patches, pstart, peaks, geom, profile,
+                                        w)
     else:
-        patches, pstart = gather_windows(packed, peaks, geom, profile)
-        sums = moments_from_patches(patches, pstart, peaks, geom, profile, w)
+        # detector.py:222-239. Both backends sum with the window-sums kernel
+        # on the card (the reference's "pallas" would run K5 here, its
+        # "xla" the same function unfused).
+        band, area_open = band_and_opening(ncc, area, cfg.ncc_threshold,
+                                           profile.band_window, cfg.open_ksize)
+        peaks = find_peaks(ncc, cfg.ncc_threshold, profile.peak_window,
+                           cfg.max_candidates, float(profile.peak_window))
+        geom = cut_geometry(peaks)
+        sums = window_sums(band, area_open, gray, peaks, geom, profile)
 
     det, scale = _finalize_candidates(sums, peaks, cfg, axis_scale=axis_scale)
     if squeeze:

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``) for Hopper.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, ``build/vbs_torch_kernels/lib<sha16>.so`` under the
-repository root, keyed by a hash of the sources and flags, and loaded with
-``ctypes``. Nothing is compiled or loaded at import time: the first CUDA
-launch calls :func:`library`. A missing ``nvcc`` or a failed compile raises
-with the compiler's output; there is no fallback.
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source
+started together, and linked into one shared library with a plain C
+interface, ``build/vbs_torch_kernels/lib<sha16>.so`` under the repository
+root, keyed by a hash of the sources and flags, and loaded with ``ctypes``.
+Nothing is compiled or loaded at import time: the first CUDA launch calls
+:func:`library`. A missing ``nvcc`` or a failed compile raises with the
+compiler's output; there is no fallback.
 """
 from __future__ import annotations
 
@@ -15,14 +16,15 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fields.cu", "gather.cu")
+SOURCES = ("fields.cu", "gather.cu", "window_sums.cu")
 BUILD_DIR = _PKG.parent / "build" / "vbs_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -32,6 +34,10 @@ _SIGNATURES = {
                          _I, _P),
     # packed, start, out, B, H, W, K, P, pack, stream
     "vbs_gather_windows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # f0, f1, f2, xy, geom, start, out, B, H, W, K, P, cutoff^2, soft_floor,
+    # soft_scale, packed, stream
+    "vbs_window_sums": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _F, _F, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -60,6 +66,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> str:
+    """Run one nvcc command; its output, or raise with it."""
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> Path:
     """Compile the sources unless the library for their hash exists."""
     global build_seconds, build_log
@@ -67,17 +82,21 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    stem = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{stem}.{Path(name).stem}.o" for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
+        log = "".join(pool.map(_run, (
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            for name, obj in zip(SOURCES, objs))))
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    log += _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     return out
 
 

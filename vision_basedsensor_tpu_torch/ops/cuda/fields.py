@@ -12,12 +12,12 @@ kernel or raises.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from vision_basedsensor_tpu_torch.config import DetectProfile
-from vision_basedsensor_tpu_torch.core.imaging import (max_filter, min_filter,
-                                                       morph_open)
+from vision_basedsensor_tpu_torch.core.imaging import (band_and_opening,
+                                                       max_filter)
 from vision_basedsensor_tpu_torch.ops.cuda import build
+from vision_basedsensor_tpu_torch.ops.peaks import cell_maxima
 
 CELL = 8  # peak-cell size
 
@@ -32,35 +32,17 @@ def halo(profile: DetectProfile, open_ksize: int) -> int:
                2 * (int(open_ksize) // 2))
 
 
-def _cells(sp: torch.Tensor):
-    """Per-8x8-cell max and row-major flat argmax (ties to the smallest
-    index) of ``sp`` ``(B, H, W)``; ragged cells pad with -inf."""
-    b, h, w = sp.shape
-    hc, wc = -(-h // CELL), -(-w // CELL)
-    sp = F.pad(sp, (0, wc * CELL - w, 0, hc * CELL - h), value=-float("inf"))
-    tiles = sp.reshape(b, hc, CELL, wc, CELL).permute(0, 1, 3, 2, 4)
-    tiles = tiles.reshape(b, hc, wc, CELL * CELL)
-    cval = torch.amax(tiles, dim=-1)
-    coff = torch.argmax(tiles, dim=-1)   # first maximal index
-    cyg = torch.arange(hc, device=sp.device)[:, None]
-    cxg = torch.arange(wc, device=sp.device)[None, :]
-    cidx = ((cyg * CELL + torch.div(coff, CELL, rounding_mode="floor")) * w
-            + (cxg * CELL + coff % CELL))
-    return cval, cidx.int()
-
-
 def fused_fields_reference(ncc: torch.Tensor, area: torch.Tensor,
                            gray: torch.Tensor, threshold: float,
                            open_ksize: int, profile: DetectProfile):
     """Plain PyTorch version of the kernel (same outputs bit for bit)."""
-    m = (ncc > threshold).float()
-    band = m * (min_filter(m, profile.band_window) < 0.5).float()
-    opened = morph_open(area.float(), int(open_ksize))
+    band, opened = band_and_opening(ncc, area, threshold,
+                                    profile.band_window, open_ksize)
     packed = gray + 256.0 * band + 512.0 * opened
     lmax = max_filter(ncc, profile.peak_window)
     is_peak = (ncc >= lmax) & (ncc > threshold)
     sp = torch.where(is_peak, ncc, torch.full_like(ncc, -float("inf")))
-    cval, cidx = _cells(sp)
+    cval, cidx = cell_maxima(sp, CELL)
     return packed, cval, cidx
 
 

@@ -20,6 +20,7 @@ import torch
 from vision_basedsensor_tpu_torch.config import DetectProfile
 from vision_basedsensor_tpu_torch.ops.cuda import build
 from vision_basedsensor_tpu_torch.ops.moments import CutGeometry
+from vision_basedsensor_tpu_torch.ops.patches import patch_origins
 from vision_basedsensor_tpu_torch.ops.peaks import Peaks
 
 LANES = 128
@@ -39,13 +40,7 @@ def _prep(h: int, w: int, peaks: Peaks, profile: DetectProfile) -> torch.Tensor:
         raise ValueError(
             f"radial_cutoff_px ({profile.radial_cutoff_px}) must be <= "
             f"patch_size/2 - 1 ({p / 2 - 1}) for backend equivalence")
-    if h < p or w < p:
-        raise ValueError(f"frame {(h, w)} is smaller than the {p}-px patch")
-    half = p // 2
-    xy = torch.round(peaks.xy).int()   # half to even, like jnp.round
-    cx = torch.clamp(xy[..., 0] - half, 0, w - p)
-    cy = torch.clamp(xy[..., 1] - half, 0, h - p)
-    return torch.stack([cx, cy], dim=-1).int().contiguous()
+    return patch_origins(h, w, peaks.xy, p)
 
 
 def gather_windows_reference(packed: torch.Tensor, start: torch.Tensor,

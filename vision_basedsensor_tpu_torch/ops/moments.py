@@ -1,9 +1,11 @@
 """Per-peak window moment sums + finalization into marker candidates.
 
 Port of ``vision_basedsensor_tpu/ops/moments.py``: the Voronoi cut geometry,
-the three batched moment backends over gathered packed-field windows
-(``moments_from_patches`` for one window per row,
-``moments_from_patches_paired`` and the default
+``window_sums_xla`` (the unfused branch's sums from patches of the three
+fields, and the plain version of the window-sums kernel
+``ops/cuda/window_sums.py``), the three batched moment backends over
+gathered packed-field windows (``moments_from_patches`` for one window per
+row, ``moments_from_patches_paired`` and the default
 ``moments_from_patches_paired_mxu`` for two windows per 128-lane row),
 ``finalize`` and the occlusion completion. The windows come from the CUDA
 gather kernel (``ops/cuda/moments.py``).
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 
 from vision_basedsensor_tpu_torch.config import DetectProfile
+from vision_basedsensor_tpu_torch.ops.patches import (extract_patches,
+                                                      patch_coords)
 from vision_basedsensor_tpu_torch.ops.peaks import Peaks
 
 NUM_SUMS = 28
@@ -77,6 +81,78 @@ def cut_geometry(peaks: Peaks) -> CutGeometry:
     zero = torch.zeros((), dtype=ex.dtype, device=ex.device)
     return CutGeometry(ex=torch.where(nok, ex, zero),
                        ey=torch.where(nok, ey, zero), rhs=rhs)
+
+
+def patch_cut(start: torch.Tensor, peaks: Peaks, geom: CutGeometry,
+              profile: DetectProfile):
+    """Global coordinates ``(gx, gy)``, peak-relative ``(dx, dy)`` and the
+    cut (radial cutoff and three halfplanes) of every pixel of the
+    ``patch_size`` patches at ``start`` ``(..., K, 2)``, each
+    ``(..., K, P, P)``."""
+    gx, gy = patch_coords(start, profile.patch_size)
+    dx = gx - peaks.xy[..., 0, None, None]
+    dy = gy - peaks.xy[..., 1, None, None]
+    d2 = dx * dx + dy * dy
+    keep = d2 <= profile.radial_cutoff_px ** 2
+    for j in range(3):
+        lhs = (dx * geom.ex[..., j, None, None]
+               + dy * geom.ey[..., j, None, None])
+        keep = keep & (lhs <= geom.rhs[..., j, None, None] + 1e-3)
+    return gx, gy, dx, dy, keep
+
+
+def window_sums_xla(band: torch.Tensor, area: torch.Tensor,
+                    gray: torch.Tensor, peaks: Peaks, geom: CutGeometry,
+                    profile: DetectProfile) -> torch.Tensor:
+    """Window sums from ``patch_size`` patches of the three fields
+    ``(..., H, W)`` around the peaks ``(..., K)``: the reference's
+    ``window_sums_xla`` batched over frames, and the plain version of the
+    window-sums kernel (``ops/cuda/window_sums.py``). Returns
+    ``(..., K, NUM_SUMS)``.
+
+    Every per-pixel value is the reference's float32 formula; the sums are
+    taken in float64 and rounded to float32 once. At 1080x1920 the third
+    moments reach ~4e6, and summing the same float32 terms in float32
+    moves them by up to 0.25 against float64 (a rendered frame on the CPU),
+    far above the 2e-2 the backends are held to; in float64 the kernel and
+    this version agree to float32 rounding whatever their orders."""
+    p = profile.patch_size
+    b_patch, start = extract_patches(band, peaks.xy, p)
+    a_patch, _ = extract_patches(area, peaks.xy, p)
+    g_patch, _ = extract_patches(gray, peaks.xy, p)
+    _, _, dx, dy, keep = patch_cut(start, peaks, geom, profile)
+    cut = keep.float()
+
+    def flat(v):
+        return v.reshape(*v.shape[:-2], p * p)
+
+    fx, fy, c = flat(dx), flat(dy), flat(cut)
+    fb, fa, fg = flat(b_patch) * c, flat(a_patch) * c, flat(g_patch)
+
+    inside = c > 0
+    lo = torch.amin(torch.where(inside, fg, torch.full_like(fg, _INF)), dim=-1)
+    hi = torch.amax(torch.where(inside, fg, torch.full_like(fg, -_INF)), dim=-1)
+    contrast = torch.clamp(hi - lo, min=1e-3)
+    w = torch.clamp((hi[..., None] - fg) / contrast[..., None], 0.0, 1.0)
+    w = soft_weight_remap(w, profile.soft_floor) * c
+    wh = (w >= 0.5).float()
+
+    def red(v):
+        return v.double().sum(-1)
+
+    def m(v):
+        return [red(v), red(v * fx), red(v * fy)]
+
+    def m2(v):
+        return [red(v * fx * fx), red(v * fy * fy), red(v * fx * fy)]
+
+    def m3(v):
+        return [red(v * fx * fx * fx), red(v * fx * fx * fy),
+                red(v * fx * fy * fy), red(v * fy * fy * fy)]
+
+    return torch.stack(
+        m(fb) + m(fa) + m2(fa) + m(w) + m2(w) + m(wh) + m2(wh)
+        + [lo.double(), hi.double(), red(c)] + m3(w), dim=-1).float()
 
 
 def unpack_packed_field(packed: torch.Tensor):

@@ -1,8 +1,10 @@
 """Candidate selection from per-cell peak reductions with distance suppression.
 
 Port of ``vision_basedsensor_tpu/ops/peaks.py`` (``Peaks``,
-``select_peaks_from_cells``, ``_suppress``). The per-cell max/argmax comes
-from the fused field kernel (``ops/cuda/fields.py``).
+``select_peaks_from_cells``, ``_suppress``, ``find_peaks``). On the fused
+branch the per-cell max/argmax comes from the fused field kernel
+(``ops/cuda/fields.py``); :func:`find_peaks` computes it for the unfused
+branch.
 
 ``lax.top_k`` orders equal values by lower index and ``_suppress`` relies on
 that rank order; ``torch.topk`` promises no tie order, so the selection is a
@@ -13,6 +15,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+
+from vision_basedsensor_tpu_torch.core.imaging import max_filter
 
 
 class Peaks(NamedTuple):
@@ -54,3 +59,35 @@ def select_peaks_from_cells(cmax: torch.Tensor, cflat: torch.Tensor,
     valid = _suppress(xy, vals, valid, min_distance)
     return Peaks(xy=xy, score=torch.where(valid, vals, torch.zeros_like(vals)),
                  valid=valid)
+
+
+def cell_maxima(sp: torch.Tensor, cell: int = 8):
+    """Per-``cell x cell`` max and row-major flat argmax ``y * W + x`` (ties
+    to the smallest index) of ``sp`` ``(..., H, W)``; ragged cells pad with
+    -inf, and the flat index uses the unpadded width."""
+    h, w = sp.shape[-2:]
+    batch = sp.shape[:-2]
+    hc, wc = -(-h // cell), -(-w // cell)
+    sp = F.pad(sp, (0, wc * cell - w, 0, hc * cell - h), value=-float("inf"))
+    tiles = sp.reshape(batch + (hc, cell, wc, cell)).transpose(-3, -2)
+    tiles = tiles.reshape(batch + (hc, wc, cell * cell))
+    cval = torch.amax(tiles, dim=-1)
+    coff = torch.argmax(tiles, dim=-1)   # first maximal index
+    cyg = torch.arange(hc, device=sp.device)[:, None]
+    cxg = torch.arange(wc, device=sp.device)[None, :]
+    cidx = ((cyg * cell + torch.div(coff, cell, rounding_mode="floor")) * w
+            + (cxg * cell + coff % cell))
+    return cval, cidx.int()
+
+
+def find_peaks(score: torch.Tensor, threshold: float, window: int,
+               max_peaks: int, min_distance: float, cell: int = 8) -> Peaks:
+    """Up to ``max_peaks`` local maxima of ``score`` ``(..., H, W)``: pixels
+    equal to their ``window`` local maximum and above ``threshold``, the
+    best of each ``cell x cell`` tile, ranked and distance-suppressed."""
+    local_max = max_filter(score, window)
+    is_peak = (score >= local_max) & (score > threshold)
+    sp = torch.where(is_peak, score, torch.full_like(score, -float("inf")))
+    cmax, cflat = cell_maxima(sp, cell)
+    return select_peaks_from_cells(cmax, cflat, score.shape[-1], max_peaks,
+                                   min_distance)

@@ -13,6 +13,7 @@ import torch
 
 from vision_basedsensor_tpu_torch.config import ReconstructConfig
 from vision_basedsensor_tpu_torch.core.camera import CameraModel
+from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
 from vision_basedsensor_tpu_torch.reconstruct.depth import reconstruct_positions
 from vision_basedsensor_tpu_torch.track.associate import TrackedFrames
 
@@ -29,8 +30,10 @@ class Reconstruction(NamedTuple):
     from_first_norm: torch.Tensor  # (B, 65)
 
 
-def initial_carry(n: int, dtype=torch.float32, device=None) -> dict:
-    """Fresh scan state."""
+def initial_carry(n: int, dtype=torch.float32, device=CUDA) -> dict:
+    """Fresh scan state (also the session checkpoint's schema,
+    ``io/session.py``)."""
+    device = resolve(device)
     return dict(
         last=torch.zeros((n, 3), dtype=dtype, device=device),
         last_ok=torch.zeros(n, dtype=torch.bool, device=device),
@@ -41,10 +44,14 @@ def initial_carry(n: int, dtype=torch.float32, device=None) -> dict:
 
 
 def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
-                      cfg: ReconstructConfig) -> Reconstruction:
+                      cfg: ReconstructConfig, carry: dict | None = None,
+                      return_carry: bool = False):
     """Run the last-sighting recurrence over frames ``world (B, 65, 3)``,
-    ``seen (B, 65)``."""
-    c = initial_carry(world.shape[1], world.dtype, world.device)
+    ``seen (B, 65)``. ``carry`` resumes from a previous chunk's (or a
+    session checkpoint's) state; with ``return_carry`` the final state is
+    returned beside the result."""
+    c = (initial_carry(world.shape[1], world.dtype, world.device)
+         if carry is None else carry)
     outs = []
     for pos, ok in zip(world, seen):
         had_prev = c["last_ok"] & ok
@@ -62,17 +69,21 @@ def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
         outs.append((dz, dnz, emit, cum, ff, torch.linalg.vector_norm(ff, dim=-1)))
     step, step_norm, step_valid, cum, ff, ffn = (torch.stack(v)
                                                  for v in zip(*outs))
-    return Reconstruction(world=world, seen=seen, step=step,
-                          step_norm=step_norm, step_valid=step_valid,
-                          cum_path=cum, from_first=ff, from_first_norm=ffn)
+    recon = Reconstruction(world=world, seen=seen, step=step,
+                           step_norm=step_norm, step_valid=step_valid,
+                           cum_path=cum, from_first=ff, from_first_norm=ffn)
+    return (recon, c) if return_carry else recon
 
 
-def warmup_mask(world: torch.Tensor, ok: torch.Tensor, warmup_frames: int):
-    """Mask the first ``warmup_frames`` frames of the batch
-    (``3d_reconstruction.py:255-256``)."""
+def warmup_mask(world: torch.Tensor, ok: torch.Tensor, warmup_frames: int,
+                offset: int = 0):
+    """Mask the first ``warmup_frames`` global frames of a stream
+    (``3d_reconstruction.py:255-256``); ``offset`` is the global index of
+    this batch's first frame."""
     if warmup_frames <= 0:
         return world, ok
-    keep = torch.arange(world.shape[0], device=world.device) >= warmup_frames
+    keep = (offset + torch.arange(world.shape[0], device=world.device)
+            >= warmup_frames)
     ok = ok & keep[:, None]
     return torch.where(ok[..., None], world, torch.zeros_like(world)), ok
 

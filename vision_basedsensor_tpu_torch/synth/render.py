@@ -17,6 +17,7 @@ import torch
 from vision_basedsensor_tpu_torch import layout
 from vision_basedsensor_tpu_torch.core import camera as cam_mod
 from vision_basedsensor_tpu_torch.core.camera import CameraModel
+from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
 
 
 class DomeScene(NamedTuple):
@@ -32,10 +33,11 @@ class DomeScene(NamedTuple):
 def default_scene(height: int = 480, width: int = 640,
                   camera_z_mm: float | None = None,
                   dist: np.ndarray | None = None,
-                  device=None) -> DomeScene:
+                  device=CUDA) -> DomeScene:
     """Camera under the dome apex looking up (+Z), dome at the origin; the
     camera distance scales with resolution up to 640 px so markers stay
-    ~20 px across."""
+    ~20 px across. Tensors are built on ``device`` (the card by default)."""
+    device = resolve(device)
     if camera_z_mm is None:
         camera_z_mm = -40.0 * min(width / 640.0, 1.0)
     f = 0.625 * width

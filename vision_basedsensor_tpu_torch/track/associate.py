@@ -1,10 +1,11 @@
 """Frame-to-frame marker association (reference C7), batched over frames.
 
-Port of ``vision_basedsensor_tpu/track/associate.py:associate`` (the
+Port of ``vision_basedsensor_tpu/track/associate.py``. ``associate`` (the
 default ``association_mode="frame0"``): every frame-0 marker takes its
 nearest valid detection within the gate, independently per frame, as one
-batched ``(B, 65, K)`` distance computation. Like the reference, the match
-is not one-to-one.
+batched ``(B, 65, K)`` distance computation; like the reference, the match
+is not one-to-one. ``associate_sequential`` gates against each marker's
+last sighting, one-to-one; its ``lax.scan`` is a Python loop over frames.
 """
 from __future__ import annotations
 
@@ -52,3 +53,40 @@ def associate(ref: ReferenceMarkers, det: Detections,
         ring=ref.ring,
         valid=valid,
     )
+
+
+def associate_sequential(ref: ReferenceMarkers, det: Detections,
+                         gate_px: float, carry_xy: torch.Tensor | None = None,
+                         return_carry: bool = False):
+    """Association against each marker's last sighting instead of frame 0
+    (``association_mode="sequential"``), one frame at a time over ``det``'s
+    single leading frame axis. A detection belongs only to its closest
+    claiming slot, so a marker that is hidden keeps its stale position
+    instead of latching onto a neighbour. ``carry_xy`` ``(65, 2)`` resumes
+    from a previous chunk (default: the frame-0 table); with
+    ``return_carry`` the final last-seen positions are returned too."""
+    last = ref.xy if carry_xy is None else carry_xy
+    n = ref.xy.shape[0]
+    slots = torch.arange(n, device=ref.xy.device)
+    inf = torch.tensor(float("inf"), device=ref.xy.device)
+    zero = torch.zeros((), dtype=ref.xy.dtype, device=ref.xy.device)
+    outs = []
+    for xy_t, axes_t, angle_t, valid_t in zip(det.xy, det.axes, det.angle,
+                                              det.valid):
+        d = torch.linalg.vector_norm(last[:, None, :] - xy_t[None, :, :],
+                                     dim=-1)
+        d = torch.where(valid_t[None, :] & ref.valid[:, None], d, inf)
+        j = torch.argmin(d, dim=-1)
+        dmin = torch.amin(d, dim=-1)
+        same = j[None, :] == j[:, None]             # slots sharing my pick
+        owner = torch.argmin(torch.where(same, dmin[None, :], inf), dim=-1)
+        valid = ref.valid & (dmin <= gate_px) & (owner == slots)
+        xy = xy_t[j]
+        last = torch.where(valid[:, None], xy, last)
+        outs.append((torch.where(valid[:, None], xy, zero),
+                     torch.where(valid[:, None], axes_t[j], zero),
+                     torch.where(valid, angle_t[j], zero), valid))
+    xy, axes, angle, valid = (torch.stack(v) for v in zip(*outs))
+    tracked = TrackedFrames(xy=xy, ref_xy=ref.xy, axes=axes, angle=angle,
+                            ring=ref.ring, valid=valid)
+    return (tracked, last) if return_carry else tracked
