@@ -32,7 +32,21 @@ result line):
      camera with undistort_frames=True and sequential association, as
      StreamingPipeline chunks of 64 against one batch (prepare_undistortion
      + initialize + process_frames): equal validity, axes and displacement
-     paths within 1e-4, >= 50 markers in every frame; chunked and batch fps.
+     paths within 1e-4, >= 50 markers in every frame; chunked and batch fps;
+  7. the production MJPEG ingest (bench.py:122-159,250-261), as INGEST says:
+     640x480 frames rendered with the -0.002 mm/frame drift restarting
+     every 256 frames, encoded at q70 with the port's own JPEG encoder and
+     muxed into an .avi. Checks: the sorted-expand kernel against its plain
+     version on a TDELTA batch's own streams (int16 equal); every transport's
+     frames bitwise equal to the dense transport's; TDELTA frames within one
+     gray level of the CPU decode of the same payload; each payload's bytes
+     equal to its stats; StreamingPipeline.run over MjpegAviCudaSource equal
+     to StreamingPipeline.process over the same decoded frames in the same
+     chunks, with exactly the ingest's kernels launched and 65/65 markers in
+     every frame. Numbers: decode-only fps per transport, decode-fed fps of
+     run against process on the decoded frames (median of three passes in
+     turns), the host entropy decode's ms per frame and the device decode's
+     stages.
 The line before the last is the kernels' JSON record (each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
@@ -61,6 +75,9 @@ RUNS = (("640x480", 480, 640, 1024, 96, "auto"),
 # The streaming run: frames, chunk size, lens distortion
 # (tests/test_undistort.py:88).
 STREAM = (1024, 64, (-0.18, 0.05, 0.0, 0.0, 0.0))
+# The ingest run (bench.py:122-159): frames, batch, JPEG quality, and the
+# period after which the rendered drift restarts (bench.py:153-154).
+INGEST = (2048, 256, 70, 256)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet, 700 W
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, same source
@@ -75,6 +92,8 @@ SRC = {
                     "vision_basedsensor_tpu/ops/pallas/moments.py:439",
                     "vision_basedsensor_tpu/ops/pallas/moments.py:232",
                     "benchmarks/gather_moments_kernel.py:152"),
+    "expand": ("vision_basedsensor_tpu_torch/csrc/expand_sorted.cu",
+               "benchmarks/scatter_onehot_kernel.py:93"),
 }
 
 
@@ -139,7 +158,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the records here")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one kernel-path batch per run "
+                    help="profile one kernel-path batch per run and one "
+                         "StreamingPipeline.run pass over the ingest's AVI "
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
     args = ap.parse_args(argv)
@@ -158,6 +178,7 @@ def main(argv=None) -> None:
     from vision_basedsensor_tpu_torch.detect import detector
     from vision_basedsensor_tpu_torch.ops import moments as tm
     from vision_basedsensor_tpu_torch.ops.cuda import build
+    from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
     from vision_basedsensor_tpu_torch.ops.cuda import fields as kf
     from vision_basedsensor_tpu_torch.ops.cuda import moments as kg
     from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
@@ -196,7 +217,8 @@ def main(argv=None) -> None:
     counters = ((kf, "fields_launches", "fields"),
                 (kg, "gather_launches", "gather"),
                 (kw, "fields_launches", "window_sums"),
-                (kw, "packed_launches", "window_sums_packed"))
+                (kw, "packed_launches", "window_sums_packed"),
+                (kx, "launches", "expand_sorted"))
 
     def reset_counts():
         for mod, attr, _ in counters:
@@ -566,11 +588,12 @@ def main(argv=None) -> None:
                 "batch_ms": 1e3 * batch_s,
                 "top": [[k, n, t / 1e3] for t, n, k in rows[:40]]}
 
-    def record(name, kind, replaces, launches, err, ms, plain_ms, bound):
+    def record(name, kind, replaces, launches, err, ms, plain_ms, bound,
+               library_ms=None):
         kernels.append(dict(
             name=name, route="cuda", source=SRC[kind][0], replaces=replaces,
             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=None))
+            bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
 
     def packed_phase(packed, peaks, geom, prof, what, launches):
         """The packed-field window sums (K6 window_sums_packed, K7
@@ -711,6 +734,250 @@ def main(argv=None) -> None:
               + f") [{card}]", flush=True)
         return rec
 
+    def ingest_phase():
+        """The production MJPEG ingest: host entropy decode, the four device
+        transports over the sorted-expand kernel, device_feed and
+        StreamingPipeline.run (bench.py:122-159,250-261)."""
+        import tempfile
+
+        from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
+        from vision_basedsensor_tpu_torch.io.video import (MjpegAviCudaSource,
+                                                           MjpegAviWriter)
+        from vision_basedsensor_tpu_torch.ops import jpeg as tj
+        from vision_basedsensor_tpu_torch.ops.expand import \
+            expand_sorted_reference
+
+        n, batch, quality, period = INGEST
+        transports = ("dense", "packed", "split", "tdelta")
+        rec: dict = {"frames": n, "batch": batch, "quality": quality,
+                     "host_cpu_count": os.cpu_count()}
+        # bench.py renders the drift in runs of `period` frames that restart
+        # from rest, so every run is the same sequence: render and encode it
+        # once, mux its JPEGs n / period times.
+        scene, frames = render(480, 640, period)
+        h, w = frames.shape[1:]
+        u8 = frames.to(torch.uint8).cpu().numpy()   # truncation, as bench.py
+        del frames
+        t = time.perf_counter()
+        jpegs = [encode_jpeg(f, quality) for f in u8]
+        rec["encode_ms_per_frame"] = 1e3 * (time.perf_counter() - t) / period
+        rec["jpeg_bytes_per_frame"] = sum(map(len, jpegs)) / period
+        print(f"ingest: encoded {period} {w}x{h} frames at q{quality} with the "
+              f"port's encoder in {rec['encode_ms_per_frame']:.2f} ms/frame "
+              f"(setup, host CPU), {rec['jpeg_bytes_per_frame']:.0f} B/frame",
+              flush=True)
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "ingest.avi")
+            wr = MjpegAviWriter(path, 12.0, (w, h))
+            for i in range(n):
+                wr.write_jpeg(jpegs[i % period])
+            wr.close()
+            first = jpegs[:batch]
+
+            # -- every transport on the first batch -------------------------
+            dec = tj.MjpegBatchDecoder(device=dev)
+            host, out = {}, {}
+            for tr in transports:
+                hp = getattr(dec, f"entropy_decode_{tr}")(first)
+                nbytes = sum(a.nbytes for a in hp if isinstance(a, np.ndarray))
+                if nbytes != hp.stats["bytes_shipped"]:
+                    raise AssertionError(f"ingest {tr}: payload {nbytes} B != "
+                                         f"stats {hp.stats['bytes_shipped']}")
+                host[tr] = hp
+                out[tr] = getattr(dec, f"{tr}_to_device")(hp)
+            torch.cuda.synchronize()
+            rec["bytes_per_frame"] = {
+                tr: host[tr].stats["bytes_shipped"] / batch for tr in transports}
+            for tr in transports:
+                if not torch.equal(out[tr], out["dense"]):
+                    raise AssertionError(f"ingest: {tr} frames != dense frames")
+            ht = host["tdelta"]
+            want = tj.MjpegBatchDecoder(device="cpu").tdelta_to_device(ht)
+            diff = (out["tdelta"].cpu() - want).abs()
+            rec["tdelta_vs_cpu"] = {"max_abs": float(diff.max()),
+                                    "pixels_differing": int((diff > 0).sum()),
+                                    "pixels": diff.numel()}
+            del want, diff
+            print(f"ingest: the four transports give bitwise-equal frames; "
+                  f"TDELTA vs the CPU decode {rec['tdelta_vs_cpu']}; bytes/frame "
+                  f"{rec['bytes_per_frame']}", flush=True)
+            if rec["tdelta_vs_cpu"]["max_abs"] > 1.0:
+                raise AssertionError("ingest: TDELTA on the card differs from "
+                                     "the CPU decode by more than 1 gray level")
+
+            # -- K8 on the TDELTA batch's own streams ------------------------
+            blocks = ht.grid[0] * ht.grid[1]
+            total = batch * blocks * ht.zmax
+            pos, val = tj.tdelta_entries(torch.from_numpy(ht.ac).to(dev),
+                                         ht.zmax)
+            spos = tj.gap_positions(torch.from_numpy(ht.sgaps).to(dev))
+            sval = torch.from_numpy(ht.sdeltas).to(dev)
+            got = kx.expand_sorted(pos, val, total, spos, sval)
+            ref_flat = expand_sorted_reference(pos, val, total, spos, sval)
+            torch.cuda.synchronize()
+            x_err = float((got.int() - ref_flat.int()).abs().max())
+            if not torch.equal(got, ref_flat):
+                raise AssertionError(f"expand_sorted kernel != plain (max abs "
+                                     f"err {x_err})")
+            keep = (pos >= 0) & (pos < total)
+            skeep = (spos >= 0) & (spos < total)
+            lib_idx = (torch.cat([pos[keep], spos[skeep]]).long(),)
+            lib_val = torch.cat([val[keep], sval[skeep]])
+
+            def library():
+                torch.zeros(total, dtype=torch.int16, device=dev).index_put_(
+                    lib_idx, lib_val, accumulate=True)
+
+            x_ms = _event_ms(lambda: kx.expand_sorted(pos, val, total, spos,
+                                                      sval), 20)
+            x_plain = _event_ms(lambda: expand_sorted_reference(
+                pos, val, total, spos, sval), 20)
+            x_lib = _event_ms(library, 20)
+            entries = pos.numel() + spos.numel()
+            # Bytes: the dense int16 output written once, every entry's int32
+            # position and int16 value read once; one integer add per entry.
+            x_bound = _bound(2 * total + 6 * entries, entries)
+            rec["expand"] = {"ms": x_ms, "plain_ms": x_plain,
+                             "library_ms": x_lib, "bound": x_bound,
+                             "entries": entries, "total": total}
+            print(f"ingest: expand_sorted kernel == plain on the TDELTA batch "
+                  f"({entries} entries -> {total} int16): kernel {x_ms:.4f} ms, "
+                  f"plain {x_plain:.4f} ms, index_put_ {x_lib:.4f} ms, bound "
+                  f"{x_bound[0]:.4f} ms ({x_bound[1]}) [{card}]", flush=True)
+
+            # -- where the TDELTA decode's time goes (one batch) -------------
+            arrays = [ht.ac, ht.sgaps, ht.sdeltas, ht.qtables]
+            ac_dev = torch.from_numpy(ht.ac).to(dev)
+            sg_dev = torch.from_numpy(ht.sgaps).to(dev)
+            flat = got.reshape(batch, -1)
+            coeffs = torch.cumsum(flat, 0, dtype=torch.int32)
+            cf = coeffs.reshape(batch, *ht.grid, ht.zmax).float()
+            qt = torch.from_numpy(ht.qtables).to(dev)
+            stages = {
+                "host_entropy_decode": 1e3 * statistics.median(
+                    _wall_s(lambda: dec.entropy_decode_tdelta(first), 3)),
+                "copy_to_device": _event_ms(
+                    lambda: [torch.from_numpy(a).to(dev) for a in arrays], 10),
+                "vlc_scan": _event_ms(lambda: (
+                    tj.tdelta_entries(ac_dev, ht.zmax),
+                    tj.gap_positions(sg_dev)), 10),
+                "expand_sorted": x_ms,
+                "temporal_cumsum": _event_ms(
+                    lambda: torch.cumsum(flat, 0, dtype=torch.int32), 10),
+                "dequant_idct": _event_ms(
+                    lambda: tj._dequant_idct(cf, qt, h, w, zigzag=True), 10),
+                "device_decode_total": _event_ms(
+                    lambda: dec.tdelta_to_device(ht), 10),
+            }
+            del flat, coeffs, cf, got, ref_flat
+            rec["tdelta_stages_ms_per_batch"] = stages
+            rec["host_decode_ms_per_frame"] = stages["host_entropy_decode"] / batch
+            print(f"ingest: TDELTA per batch of {batch}, ms: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items())
+                + f"; host entropy decode {rec['host_decode_ms_per_frame']:.4f} "
+                f"ms/frame on {os.cpu_count()} host CPUs [{card}]", flush=True)
+            del out, host
+            torch.cuda.empty_cache()
+
+            # -- decode-only fps per transport -------------------------------
+            rec["decode_only_fps"] = {}
+            for tr in transports:
+                it = MjpegAviCudaSource(path, transport=tr, device=dev).batches(
+                    batch)
+                next(it)                       # warm-up batch, not timed
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got_n = sum(b.shape[0] for b in it)
+                torch.cuda.synchronize()
+                rec["decode_only_fps"][tr] = got_n / (time.perf_counter() - t)
+            print(f"ingest: decode-only fps (host entropy decode + device "
+                  f"decode, serial) {rec['decode_only_fps']} [{card}]",
+                  flush=True)
+
+            # -- the main path: StreamingPipeline.run over the AVI -----------
+            def run_pass():
+                sp = StreamingPipeline(scene.cam, cfg, device=dev)
+                return list(sp.run(MjpegAviCudaSource(path, device=dev),
+                                   batch))
+
+            decoded = list(MjpegAviCudaSource(path, device=dev).batches(batch))
+
+            def process_pass():
+                sp = StreamingPipeline(scene.cam, cfg, device=dev)
+                return [sp.process(f) for f in decoded]
+
+            StreamingPipeline(scene.cam, cfg, device=dev).process(
+                decoded[0][:2])
+            torch.cuda.synchronize()                         # warm-up
+            reset_counts()
+            t = time.perf_counter()
+            outs = run_pass()
+            torch.cuda.synchronize()
+            rec["run_first_s"] = time.perf_counter() - t
+            rec["launches"] = launches = read_counts()
+            print(f"ingest: StreamingPipeline.run over {n} frames in "
+                  f"{rec['run_first_s']:.3f} s (first counted run); launches "
+                  f"{launches} [{card}]", flush=True)
+            expect = {"fields", "gather", "expand_sorted"}
+            if any((v > 0) != (k in expect) for k, v in launches.items()):
+                raise AssertionError(f"ingest: expected launches of exactly "
+                                     f"{sorted(expect)}, got {launches}")
+            pouts = process_pass()
+            torch.cuda.synchronize()
+            if len(outs) != len(pouts) or len(outs) != -(-n // batch):
+                raise AssertionError(f"ingest: {len(outs)} run chunks, "
+                                     f"{len(pouts)} process chunks")
+            def leaves(x, name):
+                """(name, tensor) of every tensor in nested named tuples."""
+                if isinstance(x, torch.Tensor):
+                    yield name, x
+                elif isinstance(x, tuple):
+                    for k, v in zip(x._fields, x):
+                        yield from leaves(v, f"{name}.{k}")
+
+            for i, (a, b) in enumerate(zip(outs, pouts)):
+                for (name, x), (_, y) in zip(leaves(a, "out"),
+                                             leaves(b, "out")):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"ingest: chunk {i} {name} "
+                                             "differs between run and process")
+            tracked = torch.cat([o.tracked.valid for o in outs]).sum(-1)
+            rec.update(tracked_min=int(tracked.min()),
+                       tracked_max=int(tracked.max()),
+                       frames_out=int(tracked.numel()))
+            print(f"ingest: run == process on the decoded frames (every "
+                  f"output, {len(outs)} chunks); tracked per frame min "
+                  f"{rec['tracked_min']} max {rec['tracked_max']} over "
+                  f"{rec['frames_out']} frames", flush=True)
+            if rec["frames_out"] != n or rec["tracked_min"] != 65:
+                raise AssertionError("ingest: expected 65/65 markers in every "
+                                     f"one of {n} frames")
+            del outs, pouts
+
+            # -- decode-fed fps: run against process, in turns ---------------
+            s_r = _wall_s(run_pass, 1)
+            s_p = _wall_s(process_pass, 2)
+            s_r += _wall_s(run_pass, 2)
+            s_p += _wall_s(process_pass, 1)
+            rec.update(fps_run=n / statistics.median(s_r),
+                       fps_process=n / statistics.median(s_p), s_run=s_r,
+                       s_process=s_p)
+            print(f"ingest: decode-fed fps StreamingPipeline.run "
+                  f"{rec['fps_run']:.1f} (s " + ", ".join(
+                      f"{t:.4f}" for t in s_r) + "), process on the decoded "
+                  f"frames {rec['fps_process']:.1f} (s " + ", ".join(
+                      f"{t:.4f}" for t in s_p) + f") [{card}]", flush=True)
+            if args.profile:
+                rec["profile"] = profile_batch(
+                    run_pass, f"ingest run over {n} frames",
+                    statistics.median(s_r))
+            del decoded
+            torch.cuda.empty_cache()
+        record(f"expand_sorted tdelta {batch}x{h}x{w}", "expand",
+               SRC["expand"][1], launches["expand_sorted"], x_err, x_ms,
+               x_plain, x_bound, x_lib)
+        return rec
+
     # -- kernels vs plain at the reference sensor's unaligned shape -----------
     _, fr = render(437, 467, 4)
     lo = dcfg.low_res
@@ -817,6 +1084,7 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     records["phases"]["stream"] = stream_phase()
+    records["phases"]["ingest"] = ingest_phase()
     records["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -237,3 +237,71 @@ def test_pipeline_kernel_path_matches_plain_path(cuda, k):
         assert torch.equal(getattr(out.detections, name),
                            getattr(plain.detections, name)), name
     assert torch.equal(out.contact.tilt_deg, plain.contact.tilt_deg)
+
+
+@pytest.mark.parametrize("total,n,m", [(4096 * 3, 500, 0), (4096 * 3 + 1000, 700, 30),
+                                       (4 * 4800 * 64, 80000, 500), (5, 3, 3),
+                                       (100, 0, 0)])
+def test_expand_kernel_matches_plain(cuda, total, n, m):
+    """K8 on sorted streams with duplicates, out-of-range entries at both
+    ends, a spill stream and ragged tiles: int16 equal to the plain
+    version."""
+    from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
+    from vision_basedsensor_tpu_torch.ops.expand import expand_sorted_reference
+
+    rng = np.random.default_rng(6)
+    pos = np.sort(rng.integers(-3, total + 50, n)).astype(np.int32)
+    val = rng.integers(-2000, 2000, n).astype(np.int16)
+    spos = np.sort(rng.integers(-1, total + 10, m)).astype(np.int32)
+    sval = rng.integers(-300, 300, m).astype(np.int16)
+    t = [torch.from_numpy(a).to(cuda) for a in (pos, val, spos, sval)]
+    before = kx.launches
+    got = kx.expand_sorted(t[0], t[1], total, t[2], t[3])
+    want = expand_sorted_reference(*t[:2], total, *t[2:])
+    torch.cuda.synchronize()
+    assert kx.launches == before + 1
+    assert got.dtype == torch.int16 and torch.equal(got, want)
+    assert torch.equal(kx.expand_sorted(t[0], t[1], total),
+                       expand_sorted_reference(t[0], t[1], total))
+
+
+def test_expand_wrapper_refuses_bad_inputs(cuda):
+    from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
+
+    pos = torch.arange(10, dtype=torch.int32, device=cuda)
+    val = torch.ones(10, dtype=torch.int16, device=cuda)
+    for args in ((pos.long(), val, 20), (pos, val.int(), 20),
+                 (pos[::2], val[::2], 20), (pos, val[:5], 20),
+                 (pos, val, 2 ** 31), (pos, val, 20, pos.cpu(), val.cpu()),
+                 (pos, val, 20, pos, None)):
+        with pytest.raises(ValueError):
+            kx.expand_sorted(*args)
+
+
+def test_jpeg_transports_on_the_card(cuda):
+    """Rendered frames through the port's encoder and every transport on the
+    card: bitwise equal to the dense transport, within one gray level of
+    the CPU decode, and the scatter runs on K8 (one launch per batch, two
+    for SPLIT's AC and DC spill streams, none for DENSE)."""
+    from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
+    from vision_basedsensor_tpu_torch.ops import jpeg as tj
+    from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
+    from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
+
+    scene = default_scene(480, 640, device=cuda)
+    d = torch.zeros((6, 65, 3), device=cuda)
+    d[:, :, 2] = -0.002 * torch.arange(6, device=cuda)[:, None]
+    frames = render_frames(scene, d).to(torch.uint8).cpu().numpy()
+    jpegs = [encode_jpeg(f, 70) for f in frames]
+    dec = tj.MjpegBatchDecoder(device=cuda)
+    dense = dec.dense_to_device(dec.entropy_decode_dense(jpegs))
+    for transport, n in (("packed", 1), ("split", 2), ("tdelta", 1)):
+        host = getattr(dec, f"entropy_decode_{transport}")(jpegs)
+        before = kx.launches
+        got = getattr(dec, f"{transport}_to_device")(host)
+        torch.cuda.synchronize()
+        assert kx.launches == before + n, transport
+        assert torch.equal(got, dense), transport
+    cpu = tj.MjpegBatchDecoder(device="cpu")
+    want = cpu.tdelta_to_device(cpu.entropy_decode_tdelta(jpegs))
+    assert float((dense.cpu() - want).abs().max()) <= 1.0

@@ -39,6 +39,10 @@ def test_port_imports_without_jax():
     # The session module reads calibration artifacts only through the
     # (unported) calibrate package, never the JAX one.
     assert "vision_basedsensor_tpu_torch.io.session" in names
+    # The ingest, native decoder loader included, stands alone too.
+    for mod in ("native", "io.video", "io.mjpeg", "io.jpeg_encode", "ops.jpeg",
+                "ops.expand", "ops.cuda.expand"):
+        assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
     assert bad == "[]"
 
 

@@ -149,13 +149,24 @@ def test_unported_options_raise(runs, change, tmp_path):
             session.load_session(str(tmp_path), device="cpu")
 
 
-def test_streaming_pipeline_not_ported():
-    """StreamingPipeline.run needs the ingest's device_feed (not ported):
-    it raises and names that slice; process() is ported
-    (tests/test_torch_stream.py)."""
-    sp = tpipe.StreamingPipeline(None, None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ingest"):
-        sp.run(None)
+def test_streaming_pipeline_not_ported(runs):
+    """StreamingPipeline.run, once the unported part (it raised until the
+    ingest's device_feed came): over a raw-frame source it yields the
+    chunks that process() gives on the same frames. The JPEG ingest is in
+    tests/test_torch_video.py."""
+    from vision_basedsensor_tpu_torch.io.video import ArrayVideoSource
+
+    frames = runs["frames"].astype(np.uint8)
+    sp = tpipe.StreamingPipeline(runs["cam"], runs["tc"], device="cpu")
+    outs = list(sp.run(ArrayVideoSource(frames), batch_size=3))
+    assert [o.tracked.valid.shape[0] for o in outs] == [3, 1]
+    assert sp.frames_seen == B
+    ref = tpipe.StreamingPipeline(runs["cam"], runs["tc"], device="cpu")
+    for o, i in zip(outs, (0, 3)):
+        want = ref.process(torch.from_numpy(frames[i:i + 3]))
+        assert torch.equal(o.tracked.valid, want.tracked.valid)
+        assert torch.equal(o.tracked.xy, want.tracked.xy)
+        assert torch.equal(o.recon.cum_path, want.recon.cum_path)
 
 
 def test_initialize_rejects_blank_frame(runs):

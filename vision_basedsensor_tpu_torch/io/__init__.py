@@ -1,1 +1,2 @@
-"""Session checkpoint/resume (``session.py``); the ingest comes later."""
+"""Session checkpoint/resume (``session.py``), video sources and the device
+feed (``video.py``), the MJPEG helpers and the test-stream JPEG encoder."""

@@ -21,7 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fields.cu", "gather.cu", "window_sums.cu")
+SOURCES = ("fields.cu", "gather.cu", "window_sums.cu", "expand_sorted.cu")
 BUILD_DIR = _PKG.parent / "build" / "vbs_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +38,8 @@ _SIGNATURES = {
     # soft_scale, packed, stream
     "vbs_window_sums": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _F, _F, _I, _P),
+    # pos, val, n, spill_pos, spill_val, m, out, total, stream
+    "vbs_expand_sorted": (_P, _P, _I, _P, _P, _I, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,9 +7,9 @@ Port of ``vision_basedsensor_tpu/pipeline.py``:
 
 with the one-frame identity-assignment prologue (``initialize``), the batch
 entry points ``process_frames`` / ``run_video`` and the chunked, resumable
-``StreamingPipeline``. ``DetectConfig.fast_filters=True`` raises
-``NotImplementedError`` (in the detector), and so does
-``StreamingPipeline.run``, which needs the ingest's ``device_feed``.
+``StreamingPipeline`` (``run`` over a ``VideoSource`` through
+``io/video.py:device_feed``). ``DetectConfig.fast_filters=True`` raises
+``NotImplementedError`` (in the detector).
 """
 from __future__ import annotations
 
@@ -223,9 +223,9 @@ class StreamingPipeline:
                                contact_state_sequence(recon, cfg.analysis))
 
     def run(self, source, batch_size: int = 64):
-        """Chunks of a ``VideoSource`` through :meth:`process`: needs the
-        ingest's ``io/video.py:device_feed``, which is not ported yet."""
-        raise NotImplementedError(
-            "StreamingPipeline.run needs io/video.device_feed, which comes "
-            "with the production ingest slice of the port (TDELTA device "
-            "decode); call StreamingPipeline.process on frame chunks")
+        """Iterate ``PipelineOutputs`` chunks over a ``VideoSource``, fed to
+        the pipeline's device by ``io/video.py:device_feed`` (for
+        ``MjpegAviCudaSource``: host entropy decode, device decode)."""
+        from vision_basedsensor_tpu_torch.io.video import device_feed
+        for batch in device_feed(source, batch_size, self.device):
+            yield self.process(batch)
