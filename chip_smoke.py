@@ -3,9 +3,23 @@
 NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
     python3 chip_smoke.py [--out FILE] [--profile]
+    python3 chip_smoke.py --only fields [--baseline FIELDS_CU ...] [--out FILE]
 
-Phases (any failure raises, so the script exits non-zero and prints no
-result line):
+``--only fields`` runs phases 1-2 and then the fields kernel alone: it
+checks the kernel against ``fused_fields_reference`` (exact equality) at
+4x437x467 and on the ncc/area/gray of rendered frames at each shape of
+ONLY_FIELDS (1024x480x640, 64x480x640, 48x1080x1920) without running the
+pipeline, and times each shape with CUDA events beside its bound. Each
+``--baseline`` (repeatable) is another version of ``csrc/fields.cu`` with the
+same C entry (e.g. the output of
+``git show <rev>:vision_basedsensor_tpu_torch/csrc/fields.cu``), built into a
+library of its own, checked the same way and timed in turns with the
+current kernel on the same inputs (the baselines, the current kernel twice,
+the baselines in reverse order). It ends with the same two JSON lines as
+the full run; no main path runs, so each record's "launches" is 0.
+
+Phases of the full run (any failure raises, so the script exits non-zero
+and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
      source, started together);
@@ -57,6 +71,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -78,6 +93,9 @@ STREAM = (1024, 64, (-0.18, 0.05, 0.0, 0.0, 0.0))
 # The ingest run (bench.py:122-159): frames, batch, JPEG quality, and the
 # period after which the rendered drift restarts (bench.py:153-154).
 INGEST = (2048, 256, 70, 256)
+# --only fields: (rows, cols, batches), each batch the first frames of one
+# render, so the 64-frame inputs are the first 64 of the 1024.
+ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet, 700 W
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, same source
@@ -154,6 +172,27 @@ def _distinct(b: int, h: int, w: int, ys, xs, keep) -> int:
     return int(mask[:, :h * w].sum())
 
 
+def _baseline_fields(src: str):
+    """Build another version of ``csrc/fields.cu`` (same C entry) into a
+    library of its own; returns its ``vbs_fused_fields``."""
+    import ctypes
+
+    from vision_basedsensor_tpu_torch.ops.cuda import build
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    out = build.BUILD_DIR / f"baseline_fields_{tag}.{os.getpid()}.so"
+    log = build._run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                      str(out), os.path.abspath(src)])
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas ({os.path.basename(src)}): {line.strip()}")
+    fn = ctypes.CDLL(str(out)).vbs_fused_fields
+    fn.argtypes = list(build._SIGNATURES["vbs_fused_fields"])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the records here")
@@ -162,7 +201,14 @@ def main(argv=None) -> None:
                          "StreamingPipeline.run pass over the ingest's AVI "
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
+    ap.add_argument("--only", choices=("fields",), default=None,
+                    help="check and time only the fields kernel")
+    ap.add_argument("--baseline", action="append", default=None,
+                    help="with --only fields: another fields.cu to check and "
+                         "time in turns with the current kernel (repeatable)")
     args = ap.parse_args(argv)
+    if args.baseline and args.only != "fields":
+        ap.error("--baseline needs --only fields")
 
     import numpy as np
     import torch
@@ -978,6 +1024,101 @@ def main(argv=None) -> None:
                x_plain, x_bound, x_lib)
         return rec
 
+    def fields_phase():
+        """--only fields: the fields kernel (and each --baseline version)
+        against the plain version and timed, without the pipeline."""
+        bases = {os.path.basename(src): _baseline_fields(src)
+                 for src in args.baseline or ()}
+
+        def run_base(fn, ncc, area, gray, prof):
+            b, h, w = ncc.shape
+            packed = torch.empty_like(ncc)
+            cval = torch.empty((b, -(-h // 8), -(-w // 8)), device=dev)
+            cidx = torch.empty(cval.shape, dtype=torch.int32, device=dev)
+            build.check(fn(
+                ncc.data_ptr(), area.data_ptr(), gray.data_ptr(),
+                packed.data_ptr(), cval.data_ptr(), cidx.data_ptr(), b, h, w,
+                dcfg.ncc_threshold, prof.band_window, prof.peak_window,
+                dcfg.open_ksize, kf.halo(prof, dcfg.open_ksize),
+                torch.cuda.current_stream(dev).cuda_stream),
+                "baseline fields launch")
+            return packed, cval, cidx
+
+        def check_bases(ncc, area, gray, prof, what):
+            want = fields_plain(ncc, area, gray, prof)
+            for name, fn in bases.items():
+                got = run_base(fn, ncc, area, gray, prof)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"baseline {name} != plain at {what}: max abs err "
+                        f"{max_err(got, want)}")
+                print(f"check baseline {name} {what}: exact", flush=True)
+
+        lo = dcfg.low_res
+        _, fr = render(437, 467, 4)
+        check_fields(*fields_inputs(fr, lo), lo, "4x437x467")
+        check_bases(*fields_inputs(fr, lo), lo, "4x437x467")
+        del fr
+        rec: dict = {}
+        n_it = 20
+        for h, w, batches in ONLY_FIELDS:
+            prof = profile_of(h)
+            _, frames = render(h, w, max(batches))
+            for b in batches:
+                what = f"{b}x{h}x{w}"
+                ncc, area, gray = fields_inputs(frames[:b], prof)
+                _, err = check_fields(ncc, area, gray, prof, what)
+                check_bases(ncc, area, gray, prof, what)
+                # Turns: the baselines, the kernel twice, the baselines back.
+                order = [*bases, "kernel", "kernel", *reversed(list(bases))]
+                turns: dict = {who: [] for who in order}
+                for who in order:
+                    if who == "kernel":
+                        def fn():
+                            fields_kernel(ncc, area, gray, prof)
+                    else:
+                        def fn(f=bases[who]):
+                            run_base(f, ncc, area, gray, prof)
+                    turns[who].append(_event_ms(fn, n_it))
+                ms = statistics.mean(turns["kernel"])
+                plain_ms = _event_ms(lambda: fields_plain(ncc, area, gray,
+                                                          prof), 3)
+                bound = fields_bound(b, h, w, prof)
+                rec[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound": bound, "turns_ms": turns}
+                print(f"fields {what}: kernel {ms:.4f} ms, " + ", ".join(
+                    f"{who} {statistics.mean(t):.4f} ms (turns {t})"
+                    for who, t in turns.items())
+                      + f"; plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
+                      f"({bound[1]}), {100 * bound[0] / ms:.1f}% of bound "
+                      f"[{card}]", flush=True)
+                tiled = h * w > 960 * 1280
+                record(f"{'fused_fields_tiled' if tiled else 'fused_fields'} "
+                       f"{what}", "fields", SRC["fields"][2 if tiled else 1],
+                       0, err, ms, plain_ms, bound)
+                del ncc, area, gray
+                torch.cuda.empty_cache()
+            del frames
+        return rec
+
+    def finish():
+        records["kernels"] = kernels
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(records, f, indent=1)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+
+    if args.only == "fields":
+        records["phases"]["fields"] = fields_phase()
+        finish()
+        return
+
     # -- kernels vs plain at the reference sensor's unaligned shape -----------
     _, fr = render(437, 467, 4)
     lo = dcfg.low_res
@@ -1085,15 +1226,7 @@ def main(argv=None) -> None:
 
     records["phases"]["stream"] = stream_phase()
     records["phases"]["ingest"] = ingest_phase()
-    records["kernels"] = kernels
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(records, f, indent=1)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    finish()
 
 
 if __name__ == "__main__":

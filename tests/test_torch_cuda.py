@@ -43,23 +43,64 @@ def _peaks(rng, b, k, h, w, dev):
                  valid=torch.ones((b, k), dtype=torch.bool, device=dev))
 
 
-@pytest.mark.parametrize("shape,profile", [((2, 480, 640), "low_res"),
-                                           ((1, 1080, 1920), "high_res"),
-                                           ((2, 437, 467), "low_res"),
-                                           ((1, 61, 77), "high_res")])
-def test_fields_kernel_matches_plain(cuda, shape, profile):
+@pytest.mark.parametrize("shape,profile,threshold,area_fill", [
+    ((2, 480, 640), "low_res", None, None),
+    ((1, 1080, 1920), "high_res", None, None),
+    ((2, 437, 467), "low_res", None, None),
+    ((1, 61, 77), "high_res", None, None),
+    ((3, 8, 33), "high_res", None, None),     # H < 2R + 1, W % 4 != 0
+    ((1, 480, 644), "low_res", None, None),   # ragged last column strip
+    ((1, 480, 636), "low_res", None, None),
+    ((1, 8, 8), "low_res", None, None),
+    ((2, 61, 77), "low_res", -1.0, None),     # m all ones
+    ((2, 61, 77), "high_res", 2.0, None),     # m all zeros
+    ((2, 64, 136), "high_res", None, 1.0),    # area all ones: the erosion's
+    ((2, 64, 136), "low_res", None, 0.0),     # identity at the frame border
+])
+def test_fields_kernel_matches_plain(cuda, shape, profile, threshold,
+                                     area_fill):
     cfg = DetectConfig()
     prof = getattr(cfg, profile)
+    thr = cfg.ncc_threshold if threshold is None else threshold
     ncc, area, gray = _random_fields(np.random.default_rng(1), *shape, cuda)
+    if area_fill is not None:
+        area.fill_(area_fill)
     before = kf.fields_launches
-    got = kf.fused_fields(ncc, area, gray, cfg.ncc_threshold, cfg.open_ksize,
-                          prof)
-    want = kf.fused_fields_reference(ncc, area, gray, cfg.ncc_threshold,
-                                     cfg.open_ksize, prof)
+    got = kf.fused_fields(ncc, area, gray, thr, cfg.open_ksize, prof)
+    want = kf.fused_fields_reference(ncc, area, gray, thr, cfg.open_ksize,
+                                     prof)
     torch.cuda.synchronize()
     assert kf.fields_launches == before + 1
     for a, b, name in zip(got, want, ("packed", "cval", "cidx")):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def test_fields_kernel_unaligned_and_wide_windows(cuda):
+    """Rows that are not 16-byte aligned (W % 4 == 0, odd storage offset)
+    take the scalar path; a window reach above 8 takes the wide-window
+    instantiation; one beyond MAX_HALO is refused."""
+    import dataclasses
+
+    cfg = DetectConfig()
+    rng = np.random.default_rng(7)
+    b, h, w = 2, 96, 256
+    fields = []
+    for x in _random_fields(rng, b, h, w, cuda):
+        flat = torch.empty(x.numel() + 1, device=cuda)
+        flat[1:] = x.reshape(-1)
+        fields.append(flat[1:].view(b, h, w))
+    wide = dataclasses.replace(cfg.low_res, peak_window=33, band_window=20)
+    for prof, fs in ((cfg.low_res, fields),
+                     (wide, _random_fields(rng, b, h, w, cuda))):
+        got = kf.fused_fields(*fs, cfg.ncc_threshold, cfg.open_ksize, prof)
+        want = kf.fused_fields_reference(*fs, cfg.ncc_threshold,
+                                         cfg.open_ksize, prof)
+        torch.cuda.synchronize()
+        for a, b_, name in zip(got, want, ("packed", "cval", "cidx")):
+            assert torch.equal(a, b_), name
+    too_wide = dataclasses.replace(cfg.low_res, peak_window=2 * kf.MAX_HALO + 3)
+    with pytest.raises(ValueError):
+        kf.fused_fields(*fields, cfg.ncc_threshold, cfg.open_ksize, too_wide)
 
 
 @pytest.mark.parametrize("profile,hw", [("low_res", (480, 640)),

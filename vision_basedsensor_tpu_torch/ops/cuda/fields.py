@@ -20,6 +20,7 @@ from vision_basedsensor_tpu_torch.ops.cuda import build
 from vision_basedsensor_tpu_torch.ops.peaks import cell_maxima
 
 CELL = 8  # peak-cell size
+MAX_HALO = 24  # widest window reach the kernel takes (csrc/fields.cu)
 
 # Kernel launches since the last reset (chip_smoke.py reads and resets it).
 fields_launches = 0
@@ -64,6 +65,10 @@ def fused_fields(ncc: torch.Tensor, area: torch.Tensor, gray: torch.Tensor,
     ``gray + 256*band + 512*area_open``, and ``cell_vals``/``cell_idx`` of
     shape ``(B, ceil(H/8), ceil(W/8))`` are the masked peak field's per-cell
     max and row-major argmax (flat ``y*W + x``), float32 and int32.
+
+    ``area`` is a 0/1 mask (the detector's DoG mask is); the kernel keeps it
+    as bits (nonzero is 1) and does not check it. On the card the windows
+    may reach at most ``MAX_HALO`` pixels (:func:`halo`).
     """
     global fields_launches
     if ncc.device.type == "cpu":
@@ -79,6 +84,10 @@ def fused_fields(ncc: torch.Tensor, area: torch.Tensor, gray: torch.Tensor,
         if x.device != ncc.device:
             raise ValueError(f"fused_fields: {name} is on {x.device}, ncc on "
                              f"{ncc.device}")
+    r = halo(profile, open_ksize)
+    if r > MAX_HALO:
+        raise ValueError(f"fused_fields: the windows reach {r} px, the kernel "
+                         f"at most {MAX_HALO}")
     hc, wc = -(-h // CELL), -(-w // CELL)
     packed = torch.empty_like(ncc)
     cval = torch.empty((b, hc, wc), dtype=torch.float32, device=ncc.device)
@@ -89,8 +98,7 @@ def fused_fields(ncc: torch.Tensor, area: torch.Tensor, gray: torch.Tensor,
     err = lib.vbs_fused_fields(
         ncc.data_ptr(), area.data_ptr(), gray.data_ptr(), packed.data_ptr(),
         cval.data_ptr(), cidx.data_ptr(), b, h, w, float(threshold),
-        profile.band_window, profile.peak_window, int(open_ksize),
-        halo(profile, open_ksize),
+        profile.band_window, profile.peak_window, int(open_ksize), r,
         torch.cuda.current_stream(ncc.device).cuda_stream)
     build.check(err, "fused_fields kernel launch")
     fields_launches += 1
