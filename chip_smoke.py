@@ -4,6 +4,7 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
     python3 chip_smoke.py [--out FILE] [--profile]
     python3 chip_smoke.py --only fields [--baseline FIELDS_CU ...] [--out FILE]
+    python3 chip_smoke.py --only expand [--baseline EXPAND_CU ...] [--out FILE]
 
 ``--only fields`` runs phases 1-2 and then the fields kernel alone: it
 checks the kernel against ``fused_fields_reference`` (exact equality) at
@@ -17,6 +18,15 @@ library of its own, checked the same way and timed in turns with the
 current kernel on the same inputs (the baselines, the current kernel twice,
 the baselines in reverse order). It ends with the same two JSON lines as
 the full run; no main path runs, so each record's "launches" is 0.
+
+``--only expand`` does the same for the sorted-expand kernel (K8,
+``csrc/expand_sorted.cu``) on the ingest's first TDELTA batch (INGEST's
+batch of 640x480 q70 frames, rendered and encoded as phase 7 does): each
+version int16-equal to ``expand_sorted_reference``, timed in turns, beside
+the plain version, ``index_put_`` and two probes of the first design's
+halves (``csrc/expand_probes.cu``: its stores alone, its searches and adds
+alone), PyTorch's ``zero_`` of the same output (the write rate the card
+reaches for it), and the entries' spread over the output tiles.
 
 Phases of the full run (any failure raises, so the script exits non-zero
 and prints no result line):
@@ -37,7 +47,13 @@ and prints no result line):
      branch; the reference's xla-vs-pallas tolerances on the unfused one,
      which is also held against the fused run's detections); each of the
      run's kernels against its plain version on the run's own inputs, timed
-     with CUDA events; pipeline fps, kernel path and plain path in turns;
+     with CUDA events; pipeline fps, kernel path and plain path in turns
+     (the plain path also takes the two scans' plain Python loops); every
+     run launches the displacement-scan kernel once. The 640x480 B=1024
+     run also profiles one batch (kernel launches per batch) and holds the
+     scan kernel against its plain version on the run's own positions: all
+     frames, the second half resumed from the first half's carry, and zero
+     frames with a carry; timed beside its bound;
   5. the packed-field window sums (the reference's window_sums_packed and
      fused gather_moments) on the 640x480 B=1024 run's packed field and
      peaks: against the plain version, and timed against the split path the
@@ -47,6 +63,9 @@ and prints no result line):
      StreamingPipeline chunks of 64 against one batch (prepare_undistortion
      + initialize + process_frames): equal validity, axes and displacement
      paths within 1e-4, >= 50 markers in every frame; chunked and batch fps;
+     one scan and one association launch per chunk; the association kernel
+     against its plain version on the batch's own detections (all frames,
+     resumed from a carry, zero frames), timed beside its bound;
   7. the production MJPEG ingest (bench.py:122-159,250-261), as INGEST says:
      640x480 frames rendered with the -0.002 mm/frame drift restarting
      every 256 frames, encoded at q70 with the port's own JPEG encoder and
@@ -70,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import hashlib
 import json
@@ -112,7 +132,16 @@ SRC = {
                     "benchmarks/gather_moments_kernel.py:152"),
     "expand": ("vision_basedsensor_tpu_torch/csrc/expand_sorted.cu",
                "benchmarks/scatter_onehot_kernel.py:93"),
+    "scan": ("vision_basedsensor_tpu_torch/csrc/displacement_scan.cu",
+             "vision_basedsensor_tpu/reconstruct/displacement.py:82"),
+    "associate": ("vision_basedsensor_tpu_torch/csrc/associate.cu",
+                  "vision_basedsensor_tpu/track/associate.py:111"),
 }
+EXPAND_PROBES = "vision_basedsensor_tpu_torch/csrc/expand_probes.cu"
+# The 640x480 B=1024 batch before the scans ran on the card (PERF.md §5,
+# NVIDIA H100 80GB HBM3, 700.00 W): displacement_scan's stage time in two
+# calls, and kernel launches per batch.
+BEFORE_SCAN_KERNEL = {"displacement_scan_ms": "219-307", "launches": 21682}
 
 
 def _card() -> str:
@@ -172,23 +201,24 @@ def _distinct(b: int, h: int, w: int, ys, xs, keep) -> int:
     return int(mask[:, :h * w].sum())
 
 
-def _baseline_fields(src: str):
-    """Build another version of ``csrc/fields.cu`` (same C entry) into a
-    library of its own; returns its ``vbs_fused_fields``."""
-    import ctypes
-
+def _build_alt(src: str, entry: str, argtypes=None):
+    """Build one CUDA source with a plain C interface (another version of a
+    kernel, same C entry, or the K8 probes) into a library of its own;
+    returns its function ``entry`` (argtypes: the library's signature of
+    that name unless given)."""
     from vision_basedsensor_tpu_torch.ops.cuda import build
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(src, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = build.BUILD_DIR / f"baseline_fields_{tag}.{os.getpid()}.so"
-    log = build._run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-                      str(out), os.path.abspath(src)])
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas ({os.path.basename(src)}): {line.strip()}")
-    fn = ctypes.CDLL(str(out)).vbs_fused_fields
-    fn.argtypes = list(build._SIGNATURES["vbs_fused_fields"])
+    out = build.BUILD_DIR / f"alt_{tag}.{os.getpid()}.so"
+    if not out.exists():
+        log = build._run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                          str(out), os.path.abspath(src)])
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas ({os.path.basename(src)}): {line.strip()}")
+    fn = getattr(ctypes.CDLL(str(out)), entry)
+    fn.argtypes = list(argtypes or build._SIGNATURES[entry])
     fn.restype = ctypes.c_int
     return fn
 
@@ -201,14 +231,16 @@ def main(argv=None) -> None:
                          "StreamingPipeline.run pass over the ingest's AVI "
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
-    ap.add_argument("--only", choices=("fields",), default=None,
-                    help="check and time only the fields kernel")
+    ap.add_argument("--only", choices=("fields", "expand"), default=None,
+                    help="check and time only the fields kernel or the "
+                         "sorted-expand kernel")
     ap.add_argument("--baseline", action="append", default=None,
-                    help="with --only fields: another fields.cu to check and "
-                         "time in turns with the current kernel (repeatable)")
+                    help="with --only: another version of that kernel's "
+                         "source to check and time in turns with the current "
+                         "kernel (repeatable)")
     args = ap.parse_args(argv)
-    if args.baseline and args.only != "fields":
-        ap.error("--baseline needs --only fields")
+    if args.baseline and args.only is None:
+        ap.error("--baseline needs --only")
 
     import numpy as np
     import torch
@@ -227,8 +259,11 @@ def main(argv=None) -> None:
     from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
     from vision_basedsensor_tpu_torch.ops.cuda import fields as kf
     from vision_basedsensor_tpu_torch.ops.cuda import moments as kg
+    from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
     from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
+    from vision_basedsensor_tpu_torch.ops import jpeg as tj
     from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
+    from vision_basedsensor_tpu_torch.ops.expand import expand_sorted_reference
     from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
     from vision_basedsensor_tpu_torch.ops.patches import patch_origins
     from vision_basedsensor_tpu_torch.ops.peaks import (find_peaks,
@@ -237,7 +272,11 @@ def main(argv=None) -> None:
                                                        initialize,
                                                        prepare_undistortion,
                                                        process_frames)
+    from vision_basedsensor_tpu_torch.reconstruct.displacement import \
+        displacement_scan_reference
     from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
+    from vision_basedsensor_tpu_torch.track.associate import \
+        associate_sequential_reference
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -264,7 +303,9 @@ def main(argv=None) -> None:
                 (kg, "gather_launches", "gather"),
                 (kw, "fields_launches", "window_sums"),
                 (kw, "packed_launches", "window_sums_packed"),
-                (kx, "launches", "expand_sorted"))
+                (kx, "launches", "expand_sorted"),
+                (kscan, "scan_launches", "scan"),
+                (kscan, "assoc_launches", "associate"))
 
     def reset_counts():
         for mod, attr, _ in counters:
@@ -308,6 +349,8 @@ def main(argv=None) -> None:
     def max_err(got, want) -> float:
         err = 0.0
         for a, b in zip(got, want):
+            if a.numel() == 0:
+                continue
             a, b = a.double(), b.double()
             same = (a == b)  # equal infinities count as exact
             d = torch.where(same, torch.zeros_like(a), (a - b).abs())
@@ -429,10 +472,22 @@ def main(argv=None) -> None:
 
     @contextlib.contextmanager
     def plain_kernels():
-        """Route the detector through the kernels' plain versions (for the
-        plain-path comparison on the card)."""
+        """Route the detector and the two scans through the kernels' plain
+        versions (for the plain-path comparison on the card)."""
         saved = (detector.fused_fields, detector.gather_windows_paired,
-                 detector.gather_windows, detector.window_sums)
+                 detector.gather_windows, detector.window_sums,
+                 kscan.displacement_scan, kscan.associate_sequential)
+
+        def scan(world, seen, max_step, carry):
+            rcfg = ReconstructConfig(max_step_displacement_mm=max_step)
+            recon, final = displacement_scan_reference(world, seen, rcfg,
+                                                       carry, True)
+            return tuple(recon)[2:], final
+
+        def assoc(ref, det, gate, carry_xy):
+            t, last = associate_sequential_reference(ref, det, gate, carry_xy,
+                                                     True)
+            return (t.xy, t.axes, t.angle, t.valid), last
 
         def ff(ncc, area, gray, thr, open_k, prof):
             return kf.fused_fields_reference(ncc, area, gray, thr, open_k, prof)
@@ -443,11 +498,14 @@ def main(argv=None) -> None:
         detector.gather_windows = (
             lambda packed, peaks, geom, prof: gather_plain(packed, peaks, prof, 1))
         detector.window_sums = tm.window_sums_xla
+        kscan.displacement_scan = scan
+        kscan.associate_sequential = assoc
         try:
             yield
         finally:
             (detector.fused_fields, detector.gather_windows_paired,
-             detector.gather_windows, detector.window_sums) = saved
+             detector.gather_windows, detector.window_sums,
+             kscan.displacement_scan, kscan.associate_sequential) = saved
 
     def render(h, w, batch, dist=None):
         scene = default_scene(h, w, dist=dist, device=dev)
@@ -484,9 +542,11 @@ def main(argv=None) -> None:
         rec["launches"] = launches
         print(f"{label}: main path ran in {first_s:.3f} s (first counted "
               f"run); launches {launches} [{card}]", flush=True)
-        if any((n > 0) != (k in expect) for k, n in launches.items()):
+        if (any((n > 0) != (k in expect) for k, n in launches.items())
+                or launches["scan"] != 1):
             raise AssertionError(f"{label}: expected launches of exactly "
-                                 f"{sorted(expect)}, got {launches}")
+                                 f"{sorted(expect)} (one scan), got "
+                                 f"{launches}")
 
         n_ref = int(ref.valid.sum())
         tracked = out.tracked.valid.sum(-1)
@@ -596,9 +656,18 @@ def main(argv=None) -> None:
         print(f"{label}: stages ms " + ", ".join(
             f"{k} {v:.2f}" for k, v in rec["stages_ms"].items())
             + f" [{card}]", flush=True)
-        if args.profile:
+        first = label == RUNS[0][0]
+        if args.profile or first:
             rec["profile"] = profile_batch(run, label,
                                            statistics.median(s_k))
+        if first:
+            print(f"{label}: displacement_scan stage "
+                  f"{rec['stages_ms']['displacement_scan']:.3f} ms and "
+                  f"{rec['profile']['kernels']} kernel launches per batch; "
+                  f"before the scan kernel (PERF.md §5, NVIDIA H100 80GB HBM3,"
+                  f" 700.00 W): {BEFORE_SCAN_KERNEL['displacement_scan_ms']} "
+                  f"ms and {BEFORE_SCAN_KERNEL['launches']:,} [{card}]",
+                  flush=True)
         return rec, out
 
     def profile_batch(run, label, batch_s):
@@ -633,6 +702,111 @@ def main(argv=None) -> None:
         return {"kernels": len(spans), "busy_ms": busy / 1e3,
                 "batch_ms": 1e3 * batch_s,
                 "top": [[k, n, t / 1e3] for t, n, k in rows[:40]]}
+
+    def scan_phase(world, seen, what, launches):
+        """The displacement-scan kernel against its plain version on a
+        run's own positions (all frames; the second half resumed from the
+        plain first half's carry; zero frames with a carry), then timed."""
+        rcfg = cfg.reconstruct
+        max_step = rcfg.max_step_displacement_mm
+        b, n = seen.shape
+        _, carry = displacement_scan_reference(world[:b // 2], seen[:b // 2],
+                                               rcfg, None, True)
+        cases = {"all frames": (world, seen, None),
+                 "resumed": (world[b // 2:], seen[b // 2:], carry),
+                 "zero frames": (world[:0], seen[:0], carry)}
+        # Flags and copied values bit-equal; norms 1e-6, sums 1e-5.
+        tol = {"step_norm": 1e-6, "from_first_norm": 1e-6, "cum_path": 1e-5,
+               "cum": 1e-5}
+        err = 0.0
+        for case, (wx, sx, c) in cases.items():
+            got, gfin = kscan.displacement_scan(wx.contiguous(),
+                                                sx.contiguous(), max_step, c)
+            want, wfin = displacement_scan_reference(wx, sx, rcfg, c, True)
+            torch.cuda.synchronize()
+            pairs = [*zip(want._fields[2:], got, want[2:]),
+                     *((k, gfin[k], wfin[k]) for k in gfin)]
+            e = 0.0
+            for k, a, w in pairs:
+                d = max_err([a], [w]) if k in tol else 0.0
+                if a.shape != w.shape or (d > tol[k] if k in tol
+                                          else not torch.equal(a, w)):
+                    raise AssertionError(f"displacement_scan {what} {case}: "
+                                         f"{k} differs from the plain version")
+                e = max(e, d)
+            if c is not None and len(wx) == 0 and not all(
+                    torch.equal(gfin[k], c[k]) for k in c):
+                raise AssertionError(f"displacement_scan {what}: zero frames "
+                                     "changed the carry")
+            err = max(err, e)
+            print(f"check displacement_scan {what} {case}: flags and copies "
+                  f"equal, norms and cum_path within 1e-6/1e-5 (max abs err "
+                  f"{e})", flush=True)
+        ms = _event_ms(lambda: kscan.displacement_scan(world, seen, max_step,
+                                                       None), 20)
+        plain_ms = _event_ms(lambda: displacement_scan_reference(
+            world, seen, rcfg), 1)
+        # Bytes: world and seen read (13 B a marker-frame), the six outputs
+        # written (37 B), the carry written (30 B a marker). Operations per
+        # marker-frame: 3 subtractions and a 6-op norm twice, a compare and
+        # an add (20).
+        bound = _bound(b * n * (13 + 37) + 30 * n, 20 * b * n)
+        print(f"displacement_scan {what}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); the "
+              f"kernel runs {b} dependent steps a marker, which set its floor "
+              f"above the bound [{card}]", flush=True)
+        record(f"displacement_scan {what}", "scan", SRC["scan"][1], launches,
+               err, ms, plain_ms, bound)
+        return {"ms": ms, "plain_ms": plain_ms, "bound": bound,
+                "max_abs_err": err}
+
+    def assoc_phase(ref, det, gate, what, launches):
+        """The association kernel against its plain version on a run's own
+        detections (all frames; the second half resumed from the plain
+        first half's carry; zero frames with a carry), then timed."""
+        b, k = det.valid.shape
+        n = ref.xy.shape[0]
+        half = type(det)(*(x[:b // 2] for x in det[:5]))
+        rest = type(det)(*(x[b // 2:].contiguous() for x in det[:5]))
+        none = type(det)(*(x[:0] for x in det[:5]))
+        _, carry = associate_sequential_reference(ref, half, gate, None, True)
+        for case, d, c in (("all frames", det, None), ("resumed", rest, carry),
+                           ("zero frames", none, carry)):
+            got, glast = kscan.associate_sequential(ref, d, gate, c)
+            want, wlast = associate_sequential_reference(ref, d, gate, c, True)
+            torch.cuda.synchronize()
+            for name, a, w in zip(("xy", "axes", "angle", "valid", "last"),
+                                  (*got, glast),
+                                  (want.xy, want.axes, want.angle, want.valid,
+                                   wlast)):
+                if a.shape != w.shape or not torch.equal(a, w):
+                    raise AssertionError(f"associate_sequential {what} {case}:"
+                                         f" {name} differs from the plain "
+                                         "version")
+            print(f"check associate_sequential {what} {case}: equal to the "
+                  f"plain version ({int(got[3].sum())} of {got[3].numel()} "
+                  f"slots valid)", flush=True)
+        if not torch.equal(glast, carry):
+            raise AssertionError("associate_sequential: zero frames changed "
+                                 "the carry")
+        ms = _event_ms(lambda: kscan.associate_sequential(ref, det, gate,
+                                                          None), 20)
+        plain_ms = _event_ms(lambda: associate_sequential_reference(
+            ref, det, gate), 1)
+        # Bytes: the detections read (xy 8, axes 8, angle 4, valid 1 B), the
+        # table (9 B a slot), the outputs written (21 B a slot-frame) and
+        # the carry (8 B a slot). Operations a frame: 7 per (slot,
+        # detection) for the distance and its compare, 1 per slot pair for
+        # the owner test.
+        bound = _bound(b * k * 21 + n * 9 + b * n * 21 + 8 * n,
+                       b * (7 * n * k + n * n))
+        print(f"associate_sequential {what}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); the "
+              f"kernel runs {b} dependent frames, which set its floor above "
+              f"the bound [{card}]", flush=True)
+        record(f"associate_sequential {what}", "associate",
+               SRC["associate"][1], launches, 0.0, ms, plain_ms, bound)
+        return {"ms": ms, "plain_ms": plain_ms, "bound": bound}
 
     def record(name, kind, replaces, launches, err, ms, plain_ms, bound,
                library_ms=None):
@@ -708,8 +882,8 @@ def main(argv=None) -> None:
         def batch_run():
             src_map, new_cam = prepare_undistortion(scene.cam, h, w, scfg)
             ref = initialize(frames[0], scfg, rectify_map=src_map)
-            return process_frames(frames, ref, new_cam, scfg,
-                                  rectify_map=src_map)
+            return ref, process_frames(frames, ref, new_cam, scfg,
+                                       rectify_map=src_map)
 
         def chunked_run():
             sp = StreamingPipeline(scene.cam, scfg, device=dev)
@@ -724,16 +898,20 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         rec["launches_chunked"] = read_counts()
         reset_counts()
-        bout = batch_run()
+        bref, bout = batch_run()
         torch.cuda.synchronize()
         rec["launches_batch"] = read_counts()
         print(f"stream: launches chunked {rec['launches_chunked']}, batch "
               f"{rec['launches_batch']} [{card}]", flush=True)
-        for which in ("launches_chunked", "launches_batch"):
-            if any((v > 0) != (k in ("fields", "gather"))
-                   for k, v in rec[which].items()):
-                raise AssertionError(f"stream: {which} {rec[which]}: "
-                                     "expected the fused branch's kernels")
+        expect = ("fields", "gather", "scan", "associate")
+        for which, calls in (("launches_chunked", len(outs)),
+                             ("launches_batch", 1)):
+            got = rec[which]
+            if (any((v > 0) != (k in expect) for k, v in got.items())
+                    or got["scan"] != calls or got["associate"] != calls):
+                raise AssertionError(
+                    f"stream: {which} {got}: expected the fused branch's "
+                    f"kernels and {calls} scan and association launches")
 
         def cat(get):
             return torch.cat([get(o) for o in outs])
@@ -767,6 +945,11 @@ def main(argv=None) -> None:
         if not bool(torch.isfinite(bout.contact.tilt_deg).all()):
             raise AssertionError("stream: non-finite tilt")
 
+        rec["associate"] = assoc_phase(
+            bref, bout.detections, scfg.track.min_marker_distance_px,
+            f"{n}x65 K={dcfg.max_candidates}",
+            rec["launches_batch"]["associate"])
+
         s_c = _wall_s(chunked_run, 1)
         s_b = _wall_s(batch_run, 1)
         s_b += _wall_s(batch_run, 1)
@@ -780,18 +963,165 @@ def main(argv=None) -> None:
               + f") [{card}]", flush=True)
         return rec
 
+    def encode_period(period, quality):
+        """The ingest's drift period rendered at 640x480 and encoded at
+        ``quality`` with the port's encoder: (scene, JPEGs, ms a frame)."""
+        from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
+        scene, frames = render(480, 640, period)
+        u8 = frames.to(torch.uint8).cpu().numpy()   # truncation, as bench.py
+        del frames
+        t = time.perf_counter()
+        jpegs = [encode_jpeg(f, quality) for f in u8]
+        return scene, jpegs, 1e3 * (time.perf_counter() - t) / period
+
+    def tdelta_streams(ht, batch):
+        """K8's inputs for a TDELTA payload of ``batch`` frames, as
+        ``tdelta_to_device`` builds them: (pos, val, spos, sval, total)."""
+        total = batch * ht.grid[0] * ht.grid[1] * ht.zmax
+        pos, val = tj.tdelta_entries(torch.from_numpy(ht.ac).to(dev), ht.zmax)
+        spos = tj.gap_positions(torch.from_numpy(ht.sgaps).to(dev))
+        sval = torch.from_numpy(ht.sdeltas).to(dev)
+        return pos, val, spos, sval, total
+
+    def expand_measure(streams, bases=None, probes=None):
+        """K8 and each baseline version (``{name: C entry}``) int16-equal to
+        the plain version on ``streams``, then timed in turns (the baselines
+        and probes, the kernel twice, the same in reverse), beside the plain
+        version and ``index_put_``. Probes (``{name: fn()}``) are timed
+        only."""
+        pos, val, spos, sval, total = streams
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        want = expand_sorted_reference(pos, val, total, spos, sval)
+
+        def version(fn):
+            def run():
+                out = torch.empty(total, dtype=torch.int16, device=dev)
+                build.check(fn(pos.data_ptr(), val.data_ptr(), pos.numel(),
+                               spos.data_ptr(), sval.data_ptr(), spos.numel(),
+                               out.data_ptr(), total, stream),
+                            "baseline expand_sorted launch")
+                return out
+            return run
+
+        versions = {"kernel": lambda: kx.expand_sorted(pos, val, total, spos,
+                                                       sval)}
+        versions.update({k: version(fn) for k, fn in (bases or {}).items()})
+        err = 0.0
+        for name, fn in versions.items():
+            got = fn()
+            torch.cuda.synchronize()
+            e = float((got.int() - want.int()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"expand_sorted {name} != plain (max abs "
+                                     f"err {e})")
+            err = e if name == "kernel" else err
+        del got, want
+        keep = (pos >= 0) & (pos < total)
+        skeep = (spos >= 0) & (spos < total)
+        lib_idx = (torch.cat([pos[keep], spos[skeep]]).long(),)
+        lib_val = torch.cat([val[keep], sval[skeep]])
+
+        def library():
+            torch.zeros(total, dtype=torch.int16, device=dev).index_put_(
+                lib_idx, lib_val, accumulate=True)
+
+        others = [k for k in versions if k != "kernel"] + list(probes or ())
+        order = [*others, "kernel", "kernel", *reversed(others)]
+        fns = {**versions, **(probes or {})}
+        turns: dict = {who: [] for who in order}
+        for who in order:
+            turns[who].append(_event_ms(fns[who], 20))
+        ms = statistics.mean(turns["kernel"])
+        plain_ms = _event_ms(lambda: expand_sorted_reference(
+            pos, val, total, spos, sval), 20)
+        lib_ms = _event_ms(library, 20)
+        entries = pos.numel() + spos.numel()
+        # Bytes: the dense int16 output written once, every entry's int32
+        # position and int16 value read once; one integer add per entry.
+        bound = _bound(2 * total + 6 * entries, entries)
+        print(f"expand_sorted == plain on the TDELTA batch ({entries} entries "
+              f"-> {total} int16; {', '.join(k for k in versions)} checked): "
+              f"kernel {ms:.4f} ms, " + ", ".join(
+                  f"{who} {statistics.mean(t):.4f} ms (turns {t})"
+                  for who, t in turns.items())
+              + f"; plain {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}"
+              f"% of bound [{card}]", flush=True)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound": bound, "entries": entries, "total": total,
+                "max_abs_err": err, "turns_ms": turns}
+
+    def expand_only_phase():
+        """--only expand: K8 (and each --baseline version) on the ingest's
+        first TDELTA batch, the first design's probes and PyTorch's zero
+        fill of the same output, the entries' spread over the output tiles;
+        no pipeline."""
+        _, batch, quality, period = INGEST
+        _, jpegs, _ = encode_period(period, quality)
+        ht = tj.MjpegBatchDecoder(device=dev).entropy_decode_tdelta(
+            jpegs[:batch])
+        streams = tdelta_streams(ht, batch)
+        pos, val, spos, sval, total = streams
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bases = {os.path.basename(src): _build_alt(src, "vbs_expand_sorted")
+                 for src in args.baseline or ()}
+        _P, _I = ctypes.c_void_p, ctypes.c_int
+        stores = _build_alt(EXPAND_PROBES, "vbs_expand_probe_stores",
+                            (_P, _I, _P))
+        search = _build_alt(EXPAND_PROBES, "vbs_expand_probe_search",
+                            (_P, _P, _I, _P, _P, _I, _P, _I, _P))
+        out = torch.empty(total, dtype=torch.int16, device=dev)
+        sink = torch.empty(-(-total // 4096), dtype=torch.int32, device=dev)
+        probes = {
+            "probe stores only": lambda: build.check(stores(
+                out.data_ptr(), total, stream), "probe launch"),
+            "probe search and adds only": lambda: build.check(search(
+                pos.data_ptr(), val.data_ptr(), pos.numel(), spos.data_ptr(),
+                sval.data_ptr(), spos.numel(), sink.data_ptr(), total, stream),
+                "probe launch"),
+            # The rate PyTorch's own fill writes the same output at.
+            "torch zero_ of the output": lambda: out.zero_()}
+        rec = expand_measure(streams, bases, probes)
+        # The entries' spread: over 4,096-slot tiles, in the first frame, and
+        # in the heaviest block's run of tiles when G = 6 blocks an SM (the
+        # kernel's occupancy at its 33 KB of shared memory) split the tiles
+        # by length or, as csrc/expand_sorted.cu does, by weight (a tile =
+        # 256 entries).
+        tile, weight_of_tile = 4096, 256
+        tiles = -(-total // tile)
+        keep = (pos >= 0) & (pos < total)
+        per_tile = torch.bincount(pos[keep].long() // tile, minlength=tiles)
+        first = int(((pos >= 0) & (pos < total // batch)).sum())
+        g = 6 * torch.cuda.get_device_properties(dev).multi_processor_count
+        q = torch.arange(tiles + 1, device=dev, dtype=torch.long)
+        lb = torch.searchsorted(pos.long(), q * tile)
+        weight = tiles * weight_of_tile + pos.numel()
+        d = weight * torch.arange(g + 1, device=dev) // g
+        splits = {"length": torch.arange(g + 1, device=dev) * tiles // g,
+                  "weight": torch.searchsorted(q * weight_of_tile + lb,
+                                               d).clamp(max=tiles)}
+        heaviest = {k: int((lb[v[1:]] - lb[v[:-1]]).max())
+                    for k, v in splits.items()}
+        rec["spread"] = {"entries": int(keep.sum()), "tiles": tiles,
+                         "first_frame": first,
+                         "max_per_tile": int(per_tile.max()),
+                         "empty_tiles": int((per_tile == 0).sum()),
+                         "blocks": g, "mean_per_block": int(keep.sum()) / g,
+                         "heaviest_block": heaviest}
+        print(f"expand_sorted entries: {rec['spread']}", flush=True)
+        record(f"expand_sorted tdelta {batch}x480x640", "expand",
+               SRC["expand"][1], 0, rec["max_abs_err"], rec["ms"],
+               rec["plain_ms"], rec["bound"], rec["library_ms"])
+        return rec
+
     def ingest_phase():
         """The production MJPEG ingest: host entropy decode, the four device
         transports over the sorted-expand kernel, device_feed and
         StreamingPipeline.run (bench.py:122-159,250-261)."""
         import tempfile
 
-        from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
         from vision_basedsensor_tpu_torch.io.video import (MjpegAviCudaSource,
                                                            MjpegAviWriter)
-        from vision_basedsensor_tpu_torch.ops import jpeg as tj
-        from vision_basedsensor_tpu_torch.ops.expand import \
-            expand_sorted_reference
 
         n, batch, quality, period = INGEST
         transports = ("dense", "packed", "split", "tdelta")
@@ -800,13 +1130,9 @@ def main(argv=None) -> None:
         # bench.py renders the drift in runs of `period` frames that restart
         # from rest, so every run is the same sequence: render and encode it
         # once, mux its JPEGs n / period times.
-        scene, frames = render(480, 640, period)
-        h, w = frames.shape[1:]
-        u8 = frames.to(torch.uint8).cpu().numpy()   # truncation, as bench.py
-        del frames
-        t = time.perf_counter()
-        jpegs = [encode_jpeg(f, quality) for f in u8]
-        rec["encode_ms_per_frame"] = 1e3 * (time.perf_counter() - t) / period
+        scene, jpegs, rec["encode_ms_per_frame"] = encode_period(period,
+                                                                 quality)
+        h, w = 480, 640
         rec["jpeg_bytes_per_frame"] = sum(map(len, jpegs)) / period
         print(f"ingest: encoded {period} {w}x{h} frames at q{quality} with the "
               f"port's encoder in {rec['encode_ms_per_frame']:.2f} ms/frame "
@@ -852,44 +1178,10 @@ def main(argv=None) -> None:
                                      "the CPU decode by more than 1 gray level")
 
             # -- K8 on the TDELTA batch's own streams ------------------------
-            blocks = ht.grid[0] * ht.grid[1]
-            total = batch * blocks * ht.zmax
-            pos, val = tj.tdelta_entries(torch.from_numpy(ht.ac).to(dev),
-                                         ht.zmax)
-            spos = tj.gap_positions(torch.from_numpy(ht.sgaps).to(dev))
-            sval = torch.from_numpy(ht.sdeltas).to(dev)
+            streams = tdelta_streams(ht, batch)
+            pos, val, spos, sval, total = streams
+            rec["expand"] = xm = expand_measure(streams)
             got = kx.expand_sorted(pos, val, total, spos, sval)
-            ref_flat = expand_sorted_reference(pos, val, total, spos, sval)
-            torch.cuda.synchronize()
-            x_err = float((got.int() - ref_flat.int()).abs().max())
-            if not torch.equal(got, ref_flat):
-                raise AssertionError(f"expand_sorted kernel != plain (max abs "
-                                     f"err {x_err})")
-            keep = (pos >= 0) & (pos < total)
-            skeep = (spos >= 0) & (spos < total)
-            lib_idx = (torch.cat([pos[keep], spos[skeep]]).long(),)
-            lib_val = torch.cat([val[keep], sval[skeep]])
-
-            def library():
-                torch.zeros(total, dtype=torch.int16, device=dev).index_put_(
-                    lib_idx, lib_val, accumulate=True)
-
-            x_ms = _event_ms(lambda: kx.expand_sorted(pos, val, total, spos,
-                                                      sval), 20)
-            x_plain = _event_ms(lambda: expand_sorted_reference(
-                pos, val, total, spos, sval), 20)
-            x_lib = _event_ms(library, 20)
-            entries = pos.numel() + spos.numel()
-            # Bytes: the dense int16 output written once, every entry's int32
-            # position and int16 value read once; one integer add per entry.
-            x_bound = _bound(2 * total + 6 * entries, entries)
-            rec["expand"] = {"ms": x_ms, "plain_ms": x_plain,
-                             "library_ms": x_lib, "bound": x_bound,
-                             "entries": entries, "total": total}
-            print(f"ingest: expand_sorted kernel == plain on the TDELTA batch "
-                  f"({entries} entries -> {total} int16): kernel {x_ms:.4f} ms, "
-                  f"plain {x_plain:.4f} ms, index_put_ {x_lib:.4f} ms, bound "
-                  f"{x_bound[0]:.4f} ms ({x_bound[1]}) [{card}]", flush=True)
 
             # -- where the TDELTA decode's time goes (one batch) -------------
             arrays = [ht.ac, ht.sgaps, ht.sdeltas, ht.qtables]
@@ -907,7 +1199,7 @@ def main(argv=None) -> None:
                 "vlc_scan": _event_ms(lambda: (
                     tj.tdelta_entries(ac_dev, ht.zmax),
                     tj.gap_positions(sg_dev)), 10),
-                "expand_sorted": x_ms,
+                "expand_sorted": xm["ms"],
                 "temporal_cumsum": _event_ms(
                     lambda: torch.cumsum(flat, 0, dtype=torch.int32), 10),
                 "dequant_idct": _event_ms(
@@ -915,7 +1207,7 @@ def main(argv=None) -> None:
                 "device_decode_total": _event_ms(
                     lambda: dec.tdelta_to_device(ht), 10),
             }
-            del flat, coeffs, cf, got, ref_flat
+            del flat, coeffs, cf, got
             rec["tdelta_stages_ms_per_batch"] = stages
             rec["host_decode_ms_per_frame"] = stages["host_entropy_decode"] / batch
             print(f"ingest: TDELTA per batch of {batch}, ms: " + ", ".join(
@@ -964,10 +1256,12 @@ def main(argv=None) -> None:
             print(f"ingest: StreamingPipeline.run over {n} frames in "
                   f"{rec['run_first_s']:.3f} s (first counted run); launches "
                   f"{launches} [{card}]", flush=True)
-            expect = {"fields", "gather", "expand_sorted"}
-            if any((v > 0) != (k in expect) for k, v in launches.items()):
+            expect = {"fields", "gather", "expand_sorted", "scan"}
+            if (any((v > 0) != (k in expect) for k, v in launches.items())
+                    or launches["scan"] != -(-n // batch)):
                 raise AssertionError(f"ingest: expected launches of exactly "
-                                     f"{sorted(expect)}, got {launches}")
+                                     f"{sorted(expect)}, one scan a chunk, "
+                                     f"got {launches}")
             pouts = process_pass()
             torch.cuda.synchronize()
             if len(outs) != len(pouts) or len(outs) != -(-n // batch):
@@ -1020,14 +1314,14 @@ def main(argv=None) -> None:
             del decoded
             torch.cuda.empty_cache()
         record(f"expand_sorted tdelta {batch}x{h}x{w}", "expand",
-               SRC["expand"][1], launches["expand_sorted"], x_err, x_ms,
-               x_plain, x_bound, x_lib)
+               SRC["expand"][1], launches["expand_sorted"], xm["max_abs_err"],
+               xm["ms"], xm["plain_ms"], xm["bound"], xm["library_ms"])
         return rec
 
     def fields_phase():
         """--only fields: the fields kernel (and each --baseline version)
         against the plain version and timed, without the pipeline."""
-        bases = {os.path.basename(src): _baseline_fields(src)
+        bases = {os.path.basename(src): _build_alt(src, "vbs_fused_fields")
                  for src in args.baseline or ()}
 
         def run_base(fn, ncc, area, gray, prof):
@@ -1118,6 +1412,10 @@ def main(argv=None) -> None:
         records["phases"]["fields"] = fields_phase()
         finish()
         return
+    if args.only == "expand":
+        records["phases"]["expand"] = expand_only_phase()
+        finish()
+        return
 
     # -- kernels vs plain at the reference sensor's unaligned shape -----------
     _, fr = render(437, 467, 4)
@@ -1151,8 +1449,12 @@ def main(argv=None) -> None:
             frames_of.clear()
             frames_of[key] = render(h, w, batch)
         scene, frames = frames_of[key]
-        expect = {"fields", "gather"} if fused else {"window_sums"}
+        expect = ({"fields", "gather"} if fused else {"window_sums"}) | {"scan"}
         rec, out = main_path(scene, frames, label, run_cfg, expect)
+        if label == RUNS[0][0]:
+            records["phases"]["displacement_scan"] = scan_phase(
+                out.recon.world, out.recon.seen, f"{batch}x65",
+                rec["launches"]["scan"])
         what = f"{batch}x{h}x{w} K={k}"
         n_it = 10 if batch * h * w <= 2 ** 29 else 5
         ncc, area, gray = fields_inputs(frames, prof)

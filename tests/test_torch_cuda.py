@@ -280,20 +280,48 @@ def test_pipeline_kernel_path_matches_plain_path(cuda, k):
     assert torch.equal(out.contact.tilt_deg, plain.contact.tilt_deg)
 
 
-@pytest.mark.parametrize("total,n,m", [(4096 * 3, 500, 0), (4096 * 3 + 1000, 700, 30),
-                                       (4 * 4800 * 64, 80000, 500), (5, 3, 3),
-                                       (100, 0, 0)])
-def test_expand_kernel_matches_plain(cuda, total, n, m):
-    """K8 on sorted streams with duplicates, out-of-range entries at both
-    ends, a spill stream and ragged tiles: int16 equal to the plain
-    version."""
+def _expand_positions(rng, layout, total, k):
+    """``k`` positions (unsorted) laid out over ``total`` slots."""
+    tile = 4096
+    tiles = -(-total // tile)
+    if layout == "uniform":     # out-of-range entries at both ends
+        return rng.integers(-3, total + 50, k)
+    if layout == "one_tile":    # every entry in one tile
+        return (tiles // 3) * tile + rng.integers(0, tile, k)
+    if layout == "skew":        # every entry in the first 5% of the tiles
+        return rng.integers(0, max(tile, total // 20), k)
+    if layout == "gaps":        # a few busy tiles between runs of empty ones
+        busy = rng.choice(tiles - 1, 12, replace=False)
+        return busy[rng.integers(0, 12, k)] * tile + rng.integers(0, tile, k)
+    if layout == "edge_dups":   # the same slot repeated on both sides of edges
+        edges = tile * rng.integers(1, tiles, k // 4 + 1)
+        return np.repeat(edges, 4)[:k] + np.tile([-1, -1, 0, 0], k)[:k]
+    raise ValueError(layout)
+
+
+@pytest.mark.parametrize("layout,total,n,m", [
+    ("uniform", 4096 * 3, 500, 0), ("uniform", 4096 * 3 + 1000, 700, 30),
+    ("uniform", 4 * 4800 * 64, 80000, 500), ("uniform", 5, 3, 3),
+    ("uniform", 100, 0, 0),
+    ("uniform", 4096 * 60000, 100000, 1000),   # runs capped: blocks > resident
+    ("one_tile", 4096 * 64, 5000, 40),
+    ("skew", 4096 * 2000, 60000, 300),
+    ("gaps", 4096 * 3000, 3000, 50),
+    ("edge_dups", 4096 * 50 + 7, 2000, 20),
+    ("uniform", 4096 * 10, 0, 300),            # no main entries, a spill
+])
+def test_expand_kernel_matches_plain(cuda, layout, total, n, m):
+    """K8 on sorted streams with duplicates, a spill stream and ragged
+    tiles, laid out evenly, all in one tile, skewed to the first tiles,
+    around runs of empty tiles and across tile edges: int16 equal to the
+    plain version."""
     from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
     from vision_basedsensor_tpu_torch.ops.expand import expand_sorted_reference
 
     rng = np.random.default_rng(6)
-    pos = np.sort(rng.integers(-3, total + 50, n)).astype(np.int32)
+    pos = np.sort(_expand_positions(rng, layout, total, n)).astype(np.int32)
     val = rng.integers(-2000, 2000, n).astype(np.int16)
-    spos = np.sort(rng.integers(-1, total + 10, m)).astype(np.int32)
+    spos = np.sort(_expand_positions(rng, layout, total, m)).astype(np.int32)
     sval = rng.integers(-300, 300, m).astype(np.int16)
     t = [torch.from_numpy(a).to(cuda) for a in (pos, val, spos, sval)]
     before = kx.launches
@@ -346,3 +374,152 @@ def test_jpeg_transports_on_the_card(cuda):
     cpu = tj.MjpegBatchDecoder(device="cpu")
     want = cpu.tdelta_to_device(cpu.entropy_decode_tdelta(jpegs))
     assert float((dense.cpu() - want).abs().max()) <= 1.0
+
+
+def _scan_inputs(rng, b, n, dev, with_carry):
+    """Positions walking 0.3 mm a frame with 60 mm misreads (over the 50 mm
+    step gate), a random occlusion pattern, and optionally a carry."""
+    start = np.concatenate([rng.uniform(-15, 15, (n, 2)),
+                            rng.uniform(18, 22, (n, 1))], -1)
+    walk = np.cumsum(rng.normal(0.0, 0.3, (b, n, 3)), axis=0)
+    misread = (rng.random((b, n)) < 0.05)[..., None] * np.array([0, 60.0, 0])
+    seen = rng.random((b, n)) < 0.7
+    world = np.where(seen[..., None], start + walk + misread, 0.0)
+    carry = None
+    if with_carry:
+        carry = dict(last=start + 0.5, last_ok=rng.random(n) < 0.7,
+                     first=start - 0.5, first_ok=rng.random(n) < 0.7,
+                     cum=rng.random(n) * 20.0)
+        carry = {k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool
+                                    else torch.float32, device=dev)
+                 for k, v in carry.items()}
+    return (torch.as_tensor(world, dtype=torch.float32, device=dev),
+            torch.as_tensor(seen, device=dev), carry)
+
+
+@pytest.mark.parametrize("b,n", [(0, 65), (1, 65), (7, 65), (1024, 65),
+                                 (50, 300)])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_displacement_scan_kernel_matches_plain(cuda, b, n, with_carry):
+    """One launch: flags and copied fields bit-equal to the plain loop,
+    norms within 1e-6, cum_path within 1e-5; zero frames return empty
+    outputs and the carry unchanged."""
+    from vision_basedsensor_tpu_torch.config import ReconstructConfig
+    from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
+    from vision_basedsensor_tpu_torch.reconstruct.displacement import (
+        displacement_scan, displacement_scan_reference)
+
+    world, seen, carry = _scan_inputs(np.random.default_rng(12 + b), b, n,
+                                      cuda, with_carry)
+    cfg = ReconstructConfig()
+    before = kscan.scan_launches
+    got, gfin = displacement_scan(world, seen, cfg, carry, return_carry=True)
+    want, wfin = displacement_scan_reference(world, seen, cfg, carry, True)
+    torch.cuda.synchronize()
+    assert kscan.scan_launches == before + 1
+    for name in ("step", "step_valid", "from_first"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.shape == w.shape and torch.equal(a, w), name
+    for name, tol in (("step_norm", 1e-6), ("from_first_norm", 1e-6),
+                      ("cum_path", 1e-5)):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.shape == w.shape, name
+        torch.testing.assert_close(a, w, atol=tol, rtol=0, msg=name)
+    for k in ("last", "last_ok", "first", "first_ok"):
+        assert torch.equal(gfin[k], wfin[k]), k
+    torch.testing.assert_close(gfin["cum"], wfin["cum"], atol=1e-5, rtol=0)
+    if b == 0:
+        assert got.step.shape == (0, n, 3)
+        if carry is not None:
+            assert all(torch.equal(gfin[k], carry[k]) for k in carry)
+
+
+def _assoc_inputs(rng, b, k, dev, n=65):
+    """A frame-0 table on a 30 px grid (slot 7 empty) and detections: the
+    markers drifting 0.5 px a frame with jitter, shuffled among clutter, on
+    a 0.5 px grid so that equal distances (ties) occur."""
+    from vision_basedsensor_tpu_torch.detect.detector import Detections
+    from vision_basedsensor_tpu_torch.track.rings import ReferenceMarkers
+
+    g = np.stack(np.meshgrid(np.arange(12), np.arange(12)), -1).reshape(-1, 2)
+    ref_xy = g[:n] * 30.0 + 40.0
+    ref_valid = np.ones(n, bool)
+    ref_valid[7] = False
+    xy = np.empty((b, k, 2))
+    for t in range(b):
+        pts = np.concatenate([ref_xy + [0.5 * t, 0.0]
+                              + rng.normal(0, 1.5, (n, 2)),
+                              rng.random((k - n, 2)) * 400.0])
+        xy[t] = np.round(pts[rng.permutation(k)] * 2) / 2
+    f = dict(dtype=torch.float32, device=dev)
+    ref = ReferenceMarkers(xy=torch.as_tensor(ref_xy, **f),
+                           axes=torch.ones((n, 2), **f),
+                           angle=torch.zeros(n, **f),
+                           ring=torch.zeros(n, dtype=torch.int32, device=dev),
+                           valid=torch.as_tensor(ref_valid, device=dev))
+    det = Detections(xy=torch.as_tensor(xy, **f),
+                     axes=torch.as_tensor(rng.random((b, k, 2)) * 9 + 5, **f),
+                     angle=torch.as_tensor(rng.random((b, k)) * 180, **f),
+                     score=torch.ones((b, k), **f),
+                     valid=torch.as_tensor(rng.random((b, k)) < 0.8,
+                                           device=dev))
+    return ref, det
+
+
+@pytest.mark.parametrize("b,k", [(0, 96), (1, 97), (7, 96), (1024, 97)])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_associate_kernel_matches_plain(cuda, b, k, with_carry):
+    """One launch: picks, flags and the copied xy/axes/angle bit-equal to
+    the plain loop, with ties from a 0.5 px grid; zero frames return empty
+    outputs and the carry unchanged."""
+    from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
+    from vision_basedsensor_tpu_torch.track.associate import (
+        associate_sequential, associate_sequential_reference)
+
+    rng = np.random.default_rng(40 + b)
+    ref, det = _assoc_inputs(rng, b, k, cuda)
+    carry = ref.xy + 2.0 if with_carry else None
+    before = kscan.assoc_launches
+    got, glast = associate_sequential(ref, det, 20.0, carry_xy=carry,
+                                      return_carry=True)
+    want, wlast = associate_sequential_reference(ref, det, 20.0, carry, True)
+    torch.cuda.synchronize()
+    assert kscan.assoc_launches == before + 1
+    for name in ("xy", "axes", "angle", "valid"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.shape == w.shape and torch.equal(a, w), name
+    assert torch.equal(glast, wlast)
+    if b == 0:
+        assert got.xy.shape == (0, 65, 2)
+        assert torch.equal(glast, ref.xy if carry is None else carry)
+    else:
+        assert int(got.valid[-1].sum()) >= 30
+
+
+def test_scan_wrappers_refuse_bad_inputs(cuda):
+    from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
+
+    world, seen, carry = _scan_inputs(np.random.default_rng(3), 4, 65, cuda,
+                                      True)
+    bad = [(world.double(), seen, carry), (world.cpu(), seen.cpu(), None),
+           (world, seen.cpu(), None), (world.transpose(0, 1), seen, None),
+           (world, seen.float(), None),
+           (world, seen, {**carry, "cum": carry["cum"].double()}),
+           (world, seen, {**carry, "last_ok": carry["last_ok"].cpu()})]
+    for w, s, c in bad:
+        with pytest.raises(ValueError):
+            kscan.displacement_scan(w, s, 50.0, c)
+    ref, det = _assoc_inputs(np.random.default_rng(4), 3, 96, cuda)
+    big_ref, big_det = _assoc_inputs(np.random.default_rng(5), 2,
+                                     kscan.MAX_DETECTIONS + 1, cuda)
+    for r, d, c in ((ref, det._replace(xy=det.xy.double()), None),
+                    (ref, det._replace(valid=det.valid.cpu()), None),
+                    (ref._replace(xy=ref.xy.cpu()), det, None),
+                    (ref, det, ref.xy.double()),
+                    (big_ref, big_det, None)):
+        with pytest.raises(ValueError):
+            kscan.associate_sequential(r, d, 20.0, c)
+    many_ref, many_det = _assoc_inputs(np.random.default_rng(6), 2, 140, cuda,
+                                       n=kscan.MAX_SLOTS + 1)
+    with pytest.raises(ValueError):
+        kscan.associate_sequential(many_ref, many_det, 20.0)

@@ -21,7 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fields.cu", "gather.cu", "window_sums.cu", "expand_sorted.cu")
+SOURCES = ("fields.cu", "gather.cu", "window_sums.cu", "expand_sorted.cu",
+           "displacement_scan.cu", "associate.cu")
 BUILD_DIR = _PKG.parent / "build" / "vbs_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,15 @@ _SIGNATURES = {
                         _F, _F, _I, _P),
     # pos, val, n, spill_pos, spill_val, m, out, total, stream
     "vbs_expand_sorted": (_P, _P, _I, _P, _P, _I, _P, _I, _P),
+    # world, seen, B, N, max_step, carry in (last, last_ok, first, first_ok,
+    # cum), step, step_norm, step_valid, cum_path, from_first,
+    # from_first_norm, carry out (5), stream
+    "vbs_displacement_scan": (_P, _P, _I, _I, _F, *(_P,) * 5, *(_P,) * 6,
+                              *(_P,) * 5, _P),
+    # ref_xy, ref_valid, xy, axes, angle, valid, carry, B, N, K, gate,
+    # out xy, axes, angle, valid, last, stream
+    "vbs_associate_sequential": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                 _P, _P, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -5,7 +5,9 @@ default ``association_mode="frame0"``): every frame-0 marker takes its
 nearest valid detection within the gate, independently per frame, as one
 batched ``(B, 65, K)`` distance computation; like the reference, the match
 is not one-to-one. ``associate_sequential`` gates against each marker's
-last sighting, one-to-one; its ``lax.scan`` is a Python loop over frames.
+last sighting, one-to-one: the reference's ``lax.scan`` is one launch of
+``csrc/associate.cu`` on the card, and a Python loop over frames in its
+plain version.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from vision_basedsensor_tpu_torch.detect.detector import Detections
+from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
 from vision_basedsensor_tpu_torch.track.rings import ReferenceMarkers
 
 
@@ -55,6 +58,45 @@ def associate(ref: ReferenceMarkers, det: Detections,
     )
 
 
+def associate_sequential_reference(ref: ReferenceMarkers, det: Detections,
+                                   gate_px: float,
+                                   carry_xy: torch.Tensor | None = None,
+                                   return_carry: bool = False):
+    """Plain version of :func:`associate_sequential`: a Python loop over the
+    frames. ``B = 0`` gives empty outputs and the carry unchanged, as
+    ``lax.scan`` does."""
+    last = ref.xy if carry_xy is None else carry_xy
+    n, (b, k) = ref.xy.shape[0], det.valid.shape
+    dev = ref.xy.device
+    slots = torch.arange(n, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    zero = torch.zeros((), dtype=det.xy.dtype, device=dev)
+    xy = torch.empty((b, n, 2), dtype=det.xy.dtype, device=dev)
+    axes = torch.empty((b, n, 2), dtype=det.axes.dtype, device=dev)
+    angle = torch.empty((b, n), dtype=det.angle.dtype, device=dev)
+    valid = torch.empty((b, n), dtype=torch.bool, device=dev)
+    for t in range(b):
+        xy_t = det.xy[t]
+        dx = last[:, None, 0] - xy_t[None, :, 0]
+        dy = last[:, None, 1] - xy_t[None, :, 1]
+        d = torch.sqrt(dx * dx + dy * dy)   # the kernel's order
+        d = torch.where(det.valid[t][None, :] & ref.valid[:, None], d, inf)
+        j = torch.argmin(d, dim=-1)
+        dmin = torch.amin(d, dim=-1)
+        same = j[None, :] == j[:, None]             # slots sharing my pick
+        owner = torch.argmin(torch.where(same, dmin[None, :], inf), dim=-1)
+        ok = ref.valid & (dmin <= gate_px) & (owner == slots)
+        xy_j = xy_t[j]
+        last = torch.where(ok[:, None], xy_j, last)
+        xy[t] = torch.where(ok[:, None], xy_j, zero)
+        axes[t] = torch.where(ok[:, None], det.axes[t][j], zero)
+        angle[t] = torch.where(ok, det.angle[t][j], zero)
+        valid[t] = ok
+    tracked = TrackedFrames(xy=xy, ref_xy=ref.xy, axes=axes, angle=angle,
+                            ring=ref.ring, valid=valid)
+    return (tracked, last) if return_carry else tracked
+
+
 def associate_sequential(ref: ReferenceMarkers, det: Detections,
                          gate_px: float, carry_xy: torch.Tensor | None = None,
                          return_carry: bool = False):
@@ -64,29 +106,16 @@ def associate_sequential(ref: ReferenceMarkers, det: Detections,
     claiming slot, so a marker that is hidden keeps its stale position
     instead of latching onto a neighbour. ``carry_xy`` ``(65, 2)`` resumes
     from a previous chunk (default: the frame-0 table); with
-    ``return_carry`` the final last-seen positions are returned too."""
-    last = ref.xy if carry_xy is None else carry_xy
-    n = ref.xy.shape[0]
-    slots = torch.arange(n, device=ref.xy.device)
-    inf = torch.tensor(float("inf"), device=ref.xy.device)
-    zero = torch.zeros((), dtype=ref.xy.dtype, device=ref.xy.device)
-    outs = []
-    for xy_t, axes_t, angle_t, valid_t in zip(det.xy, det.axes, det.angle,
-                                              det.valid):
-        d = torch.linalg.vector_norm(last[:, None, :] - xy_t[None, :, :],
-                                     dim=-1)
-        d = torch.where(valid_t[None, :] & ref.valid[:, None], d, inf)
-        j = torch.argmin(d, dim=-1)
-        dmin = torch.amin(d, dim=-1)
-        same = j[None, :] == j[:, None]             # slots sharing my pick
-        owner = torch.argmin(torch.where(same, dmin[None, :], inf), dim=-1)
-        valid = ref.valid & (dmin <= gate_px) & (owner == slots)
-        xy = xy_t[j]
-        last = torch.where(valid[:, None], xy, last)
-        outs.append((torch.where(valid[:, None], xy, zero),
-                     torch.where(valid[:, None], axes_t[j], zero),
-                     torch.where(valid, angle_t[j], zero), valid))
-    xy, axes, angle, valid = (torch.stack(v) for v in zip(*outs))
+    ``return_carry`` the final last-seen positions are returned too (the
+    given carry is never changed in place). CPU tensors take :func:`associate_sequential_reference`; CUDA
+    tensors one launch of the association kernel (``ops/cuda/scan.py``)."""
+    if ref.xy.device.type == "cpu":
+        return associate_sequential_reference(ref, det, gate_px, carry_xy,
+                                              return_carry)
+    det = det._replace(**{f: getattr(det, f).contiguous()
+                          for f in ("xy", "axes", "angle", "valid")})
+    (xy, axes, angle, valid), last = kscan.associate_sequential(
+        ref, det, gate_px, carry_xy)
     tracked = TrackedFrames(xy=xy, ref_xy=ref.xy, axes=axes, angle=angle,
                             ring=ref.ring, valid=valid)
     return (tracked, last) if return_carry else tracked
