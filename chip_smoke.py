@@ -5,6 +5,7 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
     python3 chip_smoke.py [--out FILE] [--profile]
     python3 chip_smoke.py --only fields [--baseline FIELDS_CU ...] [--out FILE]
     python3 chip_smoke.py --only expand [--baseline EXPAND_CU ...] [--out FILE]
+    python3 chip_smoke.py --only window_sums [--baseline WS_CU ...] [--out FILE]
 
 ``--only fields`` runs phases 1-2 and then the fields kernel alone: it
 checks the kernel against ``fused_fields_reference`` (exact equality) at
@@ -28,6 +29,20 @@ halves (``csrc/expand_probes.cu``: its stores alone, its searches and adds
 alone), PyTorch's ``zero_`` of the same output (the write rate the card
 reaches for it), and the entries' spread over the output tiles.
 
+``--only window_sums`` does the same for the window-sums kernel (K5, and
+K6/K7 in its packed mode, ``csrc/window_sums.cu``): each version checked
+against the plain version (slots 21-23 bit-equal, the rest within rtol 1e-5,
+atol 2e-2, the max error of each slot printed) at 4x437x467 on the unfused
+branch's inputs, then checked and timed at each shape of ONLY_WS on rendered
+frames: the unfused branch's band, opened area, gray and peaks at 48x1080x1920
+K=96, and the packed field and cell peaks of the fused branch at 1024x480x640
+K=96. Every version is timed on its C entry with the wrapper's prepared
+arguments, beside the plain version, the wrapper, the bound and the gated
+pixel visits against the distinct gated pixels; at the unfused shape also
+three probes of the first design (``csrc/window_sums_probes.cu``: its gated
+loads alone, its float32-accumulator twin, and it without the end
+reduction).
+
 Phases of the full run (any failure raises, so the script exits non-zero
 and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
@@ -35,7 +50,8 @@ and prints no result line):
      source, started together);
   3. check each kernel against its plain PyTorch version on the card at the
      reference sensor's unaligned 437x467: fields, gather pack=1 and 2
-     (exact equality), window sums (rtol 1e-5, atol 2e-2);
+     (exact equality), window sums (lo, hi and the count bit-equal, the
+     rest within rtol 1e-5, atol 2e-2);
   4. drive the main path (initialize + process_frames) on rendered frames
      with a z drift, in the runs of RUNS: 640x480 B=1024 and 1080x1920 B=48
      on the fused branch, the same 1080x1920 frames on the unfused branch
@@ -116,6 +132,13 @@ INGEST = (2048, 256, 70, 256)
 # --only fields: (rows, cols, batches), each batch the first frames of one
 # render, so the 64-frame inputs are the first 64 of the 1024.
 ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
+# --only window_sums: (rows, cols, batch, max_candidates, packed field). The
+# first is the unfused 1080x1920 run's K5 call; the second the packed mode
+# (K6/K7) on the 640x480 B=1024 run's packed field and peaks.
+ONLY_WS = ((1080, 1920, 48, 96, False), (480, 640, 1024, 96, True))
+# Window-sum slots that kernel and plain version give bit-equal: lo, hi and
+# the count of gated pixels.
+WS_EXACT_SLOTS = (21, 22, 23)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet, 700 W
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, same source
@@ -138,6 +161,7 @@ SRC = {
                   "vision_basedsensor_tpu/track/associate.py:111"),
 }
 EXPAND_PROBES = "vision_basedsensor_tpu_torch/csrc/expand_probes.cu"
+WS_PROBES = "vision_basedsensor_tpu_torch/csrc/window_sums_probes.cu"
 # The 640x480 B=1024 batch before the scans ran on the card (PERF.md §5,
 # NVIDIA H100 80GB HBM3, 700.00 W): displacement_scan's stage time in two
 # calls, and kernel launches per batch.
@@ -231,16 +255,24 @@ def main(argv=None) -> None:
                          "StreamingPipeline.run pass over the ingest's AVI "
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
-    ap.add_argument("--only", choices=("fields", "expand"), default=None,
-                    help="check and time only the fields kernel or the "
-                         "sorted-expand kernel")
+    ap.add_argument("--only", choices=("fields", "expand", "window_sums"),
+                    default=None,
+                    help="check and time only the fields kernel, the "
+                         "sorted-expand kernel or the window-sums kernel")
     ap.add_argument("--baseline", action="append", default=None,
                     help="with --only: another version of that kernel's "
                          "source to check and time in turns with the current "
                          "kernel (repeatable)")
+    ap.add_argument("--probe", action="append", default=None,
+                    help="with --only window_sums: a source with the "
+                         "vbs_window_sums entry that computes something "
+                         "else (a cut of a design), timed in turns but not "
+                         "checked (repeatable)")
     args = ap.parse_args(argv)
     if args.baseline and args.only is None:
         ap.error("--baseline needs --only")
+    if args.probe and args.only != "window_sums":
+        ap.error("--probe needs --only window_sums")
 
     import numpy as np
     import torch
@@ -381,20 +413,32 @@ def main(argv=None) -> None:
         return err
 
     def sums_close(got, want, valid, what):
-        """The JAX tests' window-sums tolerance: rtol 1e-5, atol 2e-2 on
-        valid peaks, equal finite patterns. Returns the max abs error."""
+        """Window sums against the plain version on valid peaks: lo (slot
+        21), hi (22) and the count of gated pixels (23) bit-equal, every
+        other slot within the JAX tests' rtol 1e-5, atol 2e-2, with equal
+        finite patterns. Prints the max abs error of each slot; returns the
+        largest."""
         a, b = got[valid].double(), want[valid].double()
+        for s in WS_EXACT_SLOTS:
+            if not torch.equal(a[:, s], b[:, s]):
+                raise AssertionError(
+                    f"{what}: slot {s} not bit-equal to the plain version "
+                    f"({int((a[:, s] != b[:, s]).sum())} peaks differ)")
         fin = torch.isfinite(b)
         if not torch.equal(torch.isfinite(a), fin):
             raise AssertionError(f"{what}: finite patterns differ")
-        d = (a - b).abs()[fin]
-        tol = 2e-2 + 1e-5 * b.abs()[fin]
-        err = float(d.max()) if d.numel() else 0.0
-        if not bool((d <= tol).all()):
+        d = torch.where(fin, (a - b).abs(), torch.zeros_like(a))
+        per_slot = (d.amax(0) if len(d) else torch.zeros(a.shape[1])).tolist()
+        err = max(per_slot)
+        if bool((d > 2e-2 + 1e-5 * torch.where(fin, b, 0.0).abs()).any()):
             raise AssertionError(f"{what}: kernel vs plain beyond rtol 1e-5 "
-                                 f"atol 2e-2 (max abs err {err})")
-        print(f"check {what}: within rtol 1e-5 atol 2e-2 (max abs err "
-              f"{err}, largest |sum| {float(b.abs()[fin].max())})",
+                                 f"atol 2e-2 (max abs err {err}; by slot "
+                                 f"{per_slot})")
+        big = float(torch.where(fin, b, 0.0).abs().max()) if len(b) else 0.0
+        print(f"check {what}: slots 21-23 bit-equal, the rest within rtol "
+              f"1e-5 atol 2e-2 on {len(b)} valid peaks (max abs err {err}, "
+              f"largest |sum| {big}); max abs err by slot: "
+              + " ".join(f"{s}:{e:.3g}" for s, e in enumerate(per_slot)),
               flush=True)
         return err
 
@@ -421,8 +465,10 @@ def main(argv=None) -> None:
         n = _distinct(peaks.xy.shape[0], h, w, gy.long(), gx.long(), keep)
         return int(keep.sum()), n
 
-    def sums_bound(peaks, geom, prof, h, w, packed):
-        """Least time of the window sums on this run's peaks.
+    def sums_bound(stats, bk, prof, packed):
+        """Least time of the window sums on a run's ``bk`` peaks, whose
+        gated pixel visits and distinct gated pixels are ``stats``
+        (``window_stats``).
 
         Bytes: the distinct gated pixels read once (12 B from the three
         fields, 4 B packed), each peak's xy (8 B) and geometry (36 B) read
@@ -438,13 +484,28 @@ def main(argv=None) -> None:
             (band 2, area 5, w 9, half level 5), 26 sums; plus 8 for the
             exact unpack in packed mode.
         A few operations per peak (contrast, rhs slack) are left out."""
-        b, k = peaks.xy.shape[:2]
-        visits, distinct = window_stats(peaks, geom, prof, h, w)
-        nbytes = (4 if packed else 12) * distinct + b * k * (8 + 36 + 4 * 28)
+        visits, distinct = stats
+        nbytes = (4 if packed else 12) * distinct + bk * (8 + 36 + 4 * 28)
         per_px = (1 + 2 + 4 + (4 if prof.soft_floor > 0.0 else 0) + 1 + 21
                   + 26 + (8 if packed else 0))
-        nops = 51 * b * k * prof.patch_size + per_px * visits
+        nops = 51 * bk * prof.patch_size + per_px * visits
         return _bound(nbytes, nops)
+
+    def ws_entry(fields, peaks, geom, prof, what):
+        """``call(fn, out)`` running one version ``fn`` of the window-sums C
+        entry (same signature as ``vbs_window_sums``) on the wrapper's own
+        prepared arguments into ``out``, and a fresh output. Timing the
+        entry alone leaves out the wrapper's patch-origin ops."""
+        out, cargs, temps = kw._prepare(fields, peaks, geom, prof, what)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        # The default argument keeps the tensors cargs points into alive.
+        def call(fn, o=out, _alive=(fields, temps)):
+            build.check(fn(*cargs[:6], o.data_ptr(), *cargs[7:], stream),
+                        f"{what} launch")
+            return o
+
+        return call, out
 
     def gather_bound(start, prof, pack, h, w):
         """Bytes: the output tensor written and the distinct in-image
@@ -809,11 +870,12 @@ def main(argv=None) -> None:
         return {"ms": ms, "plain_ms": plain_ms, "bound": bound}
 
     def record(name, kind, replaces, launches, err, ms, plain_ms, bound,
-               library_ms=None):
+               library_ms=None, **extra):
         kernels.append(dict(
             name=name, route="cuda", source=SRC[kind][0], replaces=replaces,
             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
+            bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+            **extra))
 
     def packed_phase(packed, peaks, geom, prof, what, launches):
         """The packed-field window sums (K6 window_sums_packed, K7
@@ -844,29 +906,37 @@ def main(argv=None) -> None:
         def plain():
             kw.window_sums_packed_reference(packed, peaks, geom, prof)
 
+        call, _ = ws_entry((packed,), peaks, geom, prof, "window_sums_packed")
+        lib = build.library()
         n_it = 10
         ms = {"packed": [_event_ms(fused6, n_it)], "split": []}
         ms["split"] += [_event_ms(split, n_it), _event_ms(split, n_it)]
         ms["packed"].append(_event_ms(fused6, n_it))
         gm_ms = _event_ms(fused7, n_it)
+        kernel_ms = _event_ms(lambda: call(lib.vbs_window_sums), n_it)
         plain_ms = _event_ms(plain, 3)
-        bound = sums_bound(peaks, geom, prof, packed.shape[1], w, True)
+        stats = window_stats(peaks, geom, prof, packed.shape[1], w)
+        bound = sums_bound(stats, peaks.valid.numel(), prof, True)
         fused_ms = statistics.mean(ms["packed"])
         split_ms = statistics.mean(ms["split"])
         print(f"window sums from the packed field ({what}): packed-field "
-              f"kernel {fused_ms:.3f} ms (turns {ms['packed']}), "
-              f"gather_moments entry {gm_ms:.3f} ms, split path (paired "
-              f"gather + raw-moment basis) {split_ms:.3f} ms (turns "
-              f"{ms['split']}), plain {plain_ms:.3f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+              f"entry {fused_ms:.3f} ms (turns {ms['packed']}), its kernel "
+              f"alone {kernel_ms:.4f} ms, gather_moments entry {gm_ms:.3f} "
+              f"ms, split path (paired gather + raw-moment basis) "
+              f"{split_ms:.3f} ms (turns {ms['split']}), plain {plain_ms:.3f} "
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]}), gated visits "
+              f"{stats[0]}, distinct {stats[1]} [{card}]", flush=True)
         n = launches["window_sums_packed"]
+        ratio = stats[0] / max(stats[1], 1)
         record(f"window_sums_packed {what}", "window_sums",
-               SRC["window_sums"][2], n, err6, fused_ms, plain_ms, bound)
+               SRC["window_sums"][2], n, err6, kernel_ms, plain_ms, bound,
+               visits_per_distinct=ratio)
         record(f"gather_moments {what}", "window_sums", SRC["window_sums"][3],
-               n, err7, gm_ms, plain_ms, bound)
+               n, err7, gm_ms, plain_ms, bound, visits_per_distinct=ratio)
         return {"packed_ms": ms["packed"], "split_ms": ms["split"],
-                "gather_moments_ms": gm_ms, "plain_ms": plain_ms,
-                "bound": bound, "max_abs_err": [err6, err7]}
+                "kernel_ms": kernel_ms, "gather_moments_ms": gm_ms,
+                "plain_ms": plain_ms, "bound": bound,
+                "max_abs_err": [err6, err7]}
 
     def stream_phase():
         """StreamingPipeline chunks against one batch on distorted frames,
@@ -1396,6 +1466,128 @@ def main(argv=None) -> None:
             del frames
         return rec
 
+    def ws_measure(what, fields, peaks, prof, versions, probes=None,
+                   timed=True):
+        """Each version of the window-sums C entry (``{name: fn}``, the
+        current kernel as "kernel") on ``fields`` (band, area, gray, or the
+        packed field alone) against the plain version (``sums_close``); then,
+        if ``timed``, the versions and ``probes`` (timed only) in turns
+        beside the plain version, the wrapper, the bound and the gated
+        pixels."""
+        geom = tm.cut_geometry(peaks)
+        packed = len(fields) == 1
+        b, h, w = fields[0].shape
+        if packed:
+            want = kw.window_sums_packed_reference(fields[0], peaks, geom, prof)
+        else:
+            want = tm.window_sums_xla(*fields, peaks, geom, prof)
+        call, out = ws_entry(fields, peaks, geom, prof, f"window_sums {what}")
+        errs = {}
+        for name, fn in versions.items():
+            got = call(fn, torch.empty_like(out))
+            torch.cuda.synchronize()
+            errs[name] = sums_close(got, want, peaks.valid,
+                                    f"window_sums {name} {what}")
+        if packed:
+            got = kw.window_sums_packed(fields[0], peaks, geom, prof)
+        else:
+            got = kw.window_sums(*fields, peaks, geom, prof)
+        torch.cuda.synchronize()
+        if not torch.equal(got, call(versions["kernel"],
+                                     torch.empty_like(out))):
+            raise AssertionError(f"window_sums {what}: the wrapper's output "
+                                 "differs from its C entry's")
+        del got, want
+        if not timed:
+            return {"max_abs_err": errs}
+        stats = window_stats(peaks, geom, prof, h, w)
+        bound = sums_bound(stats, peaks.valid.numel(), prof, packed)
+        n_it = 20 if b * h * w <= 2 ** 28 else 10
+        others = [k for k in versions if k != "kernel"] + list(probes or ())
+        order = [*others, "kernel", "kernel", *reversed(others)]
+        fns = {**versions, **(probes or {})}
+        turns: dict = {who: [] for who in order}
+        for who in order:
+            turns[who].append(_event_ms(lambda f=fns[who]: call(f), n_it))
+        ms = statistics.mean(turns["kernel"])
+        if packed:
+            entry_ms = _event_ms(lambda: kw.window_sums_packed(
+                fields[0], peaks, geom, prof), n_it)
+            plain_ms = _event_ms(lambda: kw.window_sums_packed_reference(
+                fields[0], peaks, geom, prof), 3)
+        else:
+            entry_ms = _event_ms(lambda: kw.window_sums(
+                *fields, peaks, geom, prof), n_it)
+            plain_ms = _event_ms(lambda: tm.window_sums_xla(
+                *fields, peaks, geom, prof), 3)
+        print(f"window_sums {what}: kernel {ms:.4f} ms, " + ", ".join(
+            f"{who} {statistics.mean(t):.4f} ms ("
+            f"{100 * bound[0] / statistics.mean(t):.1f}% of bound; turns {t})"
+            for who, t in turns.items())
+            + f"; wrapper with its patch-origin ops {entry_ms:.4f} ms; plain "
+            f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), "
+            f"{100 * bound[0] / ms:.1f}% of bound; gated visits {stats[0]}, "
+            f"distinct gated pixels {stats[1]} ({stats[0] / max(stats[1], 1):.3f}"
+            f" visits a pixel), {stats[0] / peaks.valid.numel():.1f} a peak "
+            f"[{card}]", flush=True)
+        return {"max_abs_err": errs, "ms": ms, "turns_ms": turns,
+                "entry_ms": entry_ms, "plain_ms": plain_ms, "bound": bound,
+                "visits": stats[0], "distinct": stats[1]}
+
+    def window_sums_only_phase():
+        """--only window_sums: the window-sums kernel (and each --baseline
+        version) against the plain version at 4x437x467, and checked and
+        timed at each shape of ONLY_WS, with the first design's probes at
+        the unfused one; no pipeline."""
+        bases = {os.path.basename(src): _build_alt(src, "vbs_window_sums")
+                 for src in args.baseline or ()}
+        sig = build._SIGNATURES["vbs_window_sums"]
+        probes = {f"probe {name}": _build_alt(WS_PROBES, f"vbs_ws_probe_{name}",
+                                              sig)
+                  for name in ("loads", "f32", "noreduce")}
+        probes.update({f"probe {os.path.basename(src)}":
+                       _build_alt(src, "vbs_window_sums")
+                       for src in args.probe or ()})
+        versions = {"kernel": build.library().vbs_window_sums, **bases}
+        lo = dcfg.low_res
+        rec: dict = {}
+        _, fr = render(437, 467, 4)
+        ncc, area, gray = fields_inputs(fr, lo)
+        band, area_open, peaks = unfused_inputs(ncc, area, lo,
+                                                dcfg.max_candidates)
+        rec["4x437x467"] = ws_measure("4x437x467", (band, area_open, gray),
+                                      peaks, lo, versions, timed=False)
+        del fr, ncc, area, gray, band, area_open, peaks
+        for h, w, batch, k, packed in ONLY_WS:
+            prof = profile_of(h)
+            what = f"{batch}x{h}x{w} K={k}" + (" packed" if packed else "")
+            _, frames = render(h, w, batch)
+            ncc, area, gray = fields_inputs(frames, prof)
+            del frames
+            if packed:      # as the fused branch and packed_phase give them
+                fields, cval, cidx = fields_kernel(ncc, area, gray, prof)
+                fields = (fields,)
+                peaks = select_peaks_from_cells(cval, cidx, w, k,
+                                                float(prof.peak_window))
+                del cval, cidx
+            else:           # as the unfused branch gives them
+                band, area_open, peaks = unfused_inputs(ncc, area, prof, k)
+                fields = (band, area_open, gray)
+                del band, area_open
+            del ncc, area, gray
+            torch.cuda.empty_cache()
+            r = rec[what] = ws_measure(what, fields, peaks, prof, versions,
+                                       None if packed else probes)
+            ratio = r["visits"] / max(r["distinct"], 1)
+            record(f"{'window_sums_packed' if packed else 'window_sums'} "
+                   f"{what}", "window_sums",
+                   SRC["window_sums"][2 if packed else 1], 0,
+                   r["max_abs_err"]["kernel"], r["ms"], r["plain_ms"],
+                   r["bound"], visits_per_distinct=ratio)
+            del fields, peaks
+            torch.cuda.empty_cache()
+        return rec
+
     def finish():
         records["kernels"] = kernels
         if args.out:
@@ -1414,6 +1606,10 @@ def main(argv=None) -> None:
         return
     if args.only == "expand":
         records["phases"]["expand"] = expand_only_phase()
+        finish()
+        return
+    if args.only == "window_sums":
+        records["phases"]["window_sums"] = window_sums_only_phase()
         finish()
         return
 
@@ -1469,19 +1665,28 @@ def main(argv=None) -> None:
                 kw.window_sums(band, area_open, gray, peaks, geom, prof),
                 tm.window_sums_xla(band, area_open, gray, peaks, geom, prof),
                 peaks.valid, f"window_sums {what}")
-            w_ms = _event_ms(lambda: kw.window_sums(
+            call, _ = ws_entry((band, area_open, gray), peaks, geom, prof,
+                               "window_sums")
+            lib = build.library()
+            w_ms = _event_ms(lambda: call(lib.vbs_window_sums), 20)
+            w_entry = _event_ms(lambda: kw.window_sums(
                 band, area_open, gray, peaks, geom, prof), n_it)
             w_plain = _event_ms(lambda: tm.window_sums_xla(
                 band, area_open, gray, peaks, geom, prof), n_it)
-            w_bound = sums_bound(peaks, geom, prof, h, w, False)
+            stats = window_stats(peaks, geom, prof, h, w)
+            w_bound = sums_bound(stats, peaks.valid.numel(), prof, False)
             rec["kernel_ms"] = {"window_sums": [w_ms, w_plain],
-                                "bound": w_bound}
-            print(f"{label}: window_sums kernel {w_ms:.3f} ms vs plain "
+                                "entry_ms": w_entry, "bound": w_bound,
+                                "visits_distinct": stats}
+            print(f"{label}: window_sums kernel {w_ms:.4f} ms (entry with "
+                  f"its patch-origin ops {w_entry:.3f} ms) vs plain "
                   f"{w_plain:.3f} ms; bound {w_bound[0]:.4f} ms "
-                  f"({w_bound[1]}) ({what}) [{card}]", flush=True)
+                  f"({w_bound[1]}), {100 * w_bound[0] / w_ms:.1f}% of bound; "
+                  f"gated visits {stats[0]}, distinct {stats[1]} ({what}) "
+                  f"[{card}]", flush=True)
             record(f"window_sums {what}", "window_sums", SRC["window_sums"][1],
                    rec["launches"]["window_sums"], w_err, w_ms, w_plain,
-                   w_bound)
+                   w_bound, visits_per_distinct=stats[0] / max(stats[1], 1))
             records["phases"][label] = rec
             del band, area_open, peaks, geom
             continue

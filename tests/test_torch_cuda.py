@@ -131,18 +131,36 @@ def _sums_close(got, want, valid):
     np.testing.assert_allclose(a[fin], b[fin], rtol=1e-5, atol=2e-2)
 
 
+@pytest.mark.parametrize("case", ["random", "corners", "empty_cut",
+                                  "soft_floor_0", "k1", "k7", "k97", "b0",
+                                  "k0", "big_patch"])
 @pytest.mark.parametrize("profile,hw", [("low_res", (480, 640)),
                                         ("high_res", (1080, 1920)),
                                         ("low_res", (437, 467))])
 @pytest.mark.parametrize("packed", [False, True])
-def test_window_sums_kernel_matches_plain(cuda, profile, hw, packed):
+def test_window_sums_kernel_matches_plain(cuda, profile, hw, packed, case):
+    """Count (slot 23), lo (21) and hi (22) bit-equal to the plain version,
+    the rest within the JAX tests' tolerance, on fractional peaks and the
+    cases a warp-per-peak kernel walking each row's gated run can get
+    wrong: peaks on and beside the four corners (clipped patch origins),
+    halfplanes that exclude every pixel, ``soft_floor = 0``, K not a
+    multiple of the peaks a block takes, B = 0 and K = 0 (no launch), and a
+    patch whose gated list outgrows the kernel's 4,096 shared keys."""
+    import dataclasses
+
     from vision_basedsensor_tpu_torch.ops import moments as tm
     from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
 
     h, w = hw
     prof = getattr(DetectConfig(), profile)
+    if case == "soft_floor_0":
+        prof = dataclasses.replace(prof, soft_floor=0.0)
+    if case == "big_patch":
+        prof = dataclasses.replace(prof, patch_size=96, radial_cutoff_px=46.0)
     rng = np.random.default_rng(4)
-    b, k = 2, 96
+    b = 0 if case == "b0" else 2
+    # Five peaks leave the big patch's 46-px disks whole: lists of ~6,600.
+    k = {"k1": 1, "k7": 7, "k97": 97, "k0": 0, "big_patch": 5}.get(case, 96)
     band = torch.as_tensor(rng.random((b, h, w)) > 0.7, dtype=torch.float32,
                            device=cuda)
     area = torch.as_tensor(rng.random((b, h, w)) > 0.4, dtype=torch.float32,
@@ -150,24 +168,50 @@ def test_window_sums_kernel_matches_plain(cuda, profile, hw, packed):
     # Fractional gray, as after undistortion.
     gray = torch.as_tensor(rng.random((b, h, w)) * 255.0, dtype=torch.float32,
                            device=cuda)
-    peaks = _peaks(rng, b, k, h, w, cuda)
-    peaks = peaks._replace(xy=peaks.xy + torch.as_tensor(
-        rng.random((b, k, 2)) - 0.5, dtype=torch.float32, device=cuda))
-    peaks = peaks._replace(valid=torch.as_tensor(rng.random((b, k)) > 0.2,
-                                                 device=cuda))
+    xy = np.stack([rng.uniform(0, w - 1, (b, k)),
+                   rng.uniform(0, h - 1, (b, k))], -1)
+    if case == "corners":
+        xy[:, :6] = [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1],
+                     [0.49, 0.3], [w - 1.4, h - 1.45]]
+    valid = rng.random((b, k)) > 0.2
+    if case == "corners":
+        valid[:, :6] = True
+    peaks = Peaks(xy=torch.as_tensor(xy, dtype=torch.float32, device=cuda),
+                  score=torch.ones((b, k), device=cuda),
+                  valid=torch.as_tensor(valid, device=cuda))
     geom = tm.cut_geometry(peaks)
-    want = tm.window_sums_xla(band, area, gray, peaks, geom, prof)
+    if case == "empty_cut":     # dx <= -1000 for the first halfplane
+        geom = tm.CutGeometry(ex=torch.ones_like(geom.ex),
+                              ey=torch.zeros_like(geom.ey),
+                              rhs=torch.full_like(geom.rhs, -1000.0))
+    launched = int(b * k > 0)
     if packed:
+        # Packing rounds the fractional gray: the reference is the plain
+        # version of the packed mode, on the same packed field.
+        field = gray + 256.0 * band + 512.0 * area
+        want = kw.window_sums_packed_reference(field, peaks, geom, prof)
         before = kw.packed_launches
-        got = kw.window_sums_packed(gray + 256.0 * band + 512.0 * area, peaks,
-                                    geom, prof)
-        assert kw.packed_launches == before + 1
+        got = kw.window_sums_packed(field, peaks, geom, prof)
+        assert kw.packed_launches == before + launched
     else:
+        want = tm.window_sums_xla(band, area, gray, peaks, geom, prof)
         before = kw.fields_launches
         got = kw.window_sums(band, area, gray, peaks, geom, prof)
-        assert kw.fields_launches == before + 1
+        assert kw.fields_launches == before + launched
     torch.cuda.synchronize()
-    _sums_close(got, want, peaks.valid)
+    assert got.shape == want.shape == (b, k, tm.NUM_SUMS)
+    v = peaks.valid
+    for slot in (21, 22, 23):
+        assert torch.equal(got[v][:, slot], want[v][:, slot]), slot
+    _sums_close(got, want, v)
+    if case == "empty_cut":
+        assert not got[..., 23].any()
+        assert bool(torch.isposinf(got[..., 21]).all())
+        assert bool(torch.isneginf(got[..., 22]).all())
+    elif b * k:
+        assert int(got[..., 23].sum()) > 0
+    if case == "big_patch":         # the kernel's list ran in chunks
+        assert float(got[..., 23].max()) > 4096
 
 
 def test_detect_unfused_kernel_path_matches_plain_path(cuda):

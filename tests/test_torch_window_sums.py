@@ -102,10 +102,11 @@ def test_find_peaks_matches_jax_exact(fields):
     assert int(tp.valid.sum()) >= 2 * 60
 
 
-@pytest.mark.parametrize("shape,patch", [((2, 61, 77), 40), ((70, 64), 64)])
+@pytest.mark.parametrize("shape,patch", [((2, 61, 77), 40), ((70, 64), 64),
+                                         ((0, 61, 77), 40)])
 def test_extract_patches_matches_jax_exact(shape, patch):
     """Border centres and .5 positions (round half to even), with and
-    without a frame axis."""
+    without a frame axis, and with no frames."""
     rng = np.random.default_rng(3)
     h, w = shape[-2:]
     img = rng.random(shape).astype(np.float32)
@@ -191,6 +192,79 @@ def test_border_peaks_match_xla_and_pallas(fields):
     jpal = jpm.window_sums_pallas(jf["band"][:1], jf["area"][:1],
                                   jf["gray"][:1], jp, jg, prof, interpret=True)
     _close(jpal, ts, valid)
+
+
+@pytest.mark.parametrize("case", ["corners", "empty_cut", "k1", "k97",
+                                  "soft_floor_0"])
+def test_edge_cases_match_xla_and_pallas(case, fields):
+    """Cases a kernel that walks each peak's gated rows can get wrong, on
+    the plain version against JAX xla and Pallas (interpret mode): peaks on
+    the four corner pixels and within half a pixel of two corners (clipped
+    patch origins), halfplanes that exclude every pixel (count 0, lo +inf,
+    hi -inf), a lone peak (no halfplanes), an odd K of 97 and
+    ``soft_floor = 0``."""
+    cfg, prof, tprof, jf, tf = fields
+    k = {"k1": 1, "k97": 97}.get(case, 8)
+    if case == "k97":           # the rendered frame's own 97 candidates
+        peaks = jfind(jf["ncc"][:1], cfg.ncc_threshold, prof.peak_window, k,
+                      float(prof.peak_window))
+        xy, valid = np.array(peaks.xy), np.array(peaks.valid)
+    else:                       # the frame's first k peaks
+        xy = np.array(jf["peaks"].xy[:1, :k])
+        valid = np.ones((1, k), bool)
+    if case == "corners":
+        xy[0, :6] = [[0, 0], [W - 1, 0], [0, H - 1], [W - 1, H - 1],
+                     [0.49, 0.3], [W - 1.4, H - 1.45]]
+    xy = xy.astype(np.float32)
+    jp = JPeaks(xy=jnp.asarray(xy), score=jnp.ones((1, k)),
+                valid=jnp.asarray(valid))
+    tp = TPeaks(xy=torch.from_numpy(xy), score=torch.ones((1, k)),
+                valid=torch.from_numpy(valid))
+    jg, tg = jax.vmap(jm.cut_geometry)(jp), tm.cut_geometry(tp)
+    if case == "empty_cut":     # dx <= -1000 for the first halfplane
+        jg = jm.CutGeometry(ex=jnp.ones((1, k, 3)), ey=jnp.zeros((1, k, 3)),
+                            rhs=jnp.full((1, k, 3), -1000.0))
+        tg = tm.CutGeometry(*(torch.from_numpy(np.array(x)) for x in jg))
+    if case == "soft_floor_0":
+        prof = dataclasses.replace(prof, soft_floor=0.0)
+        tprof = dataclasses.replace(tprof, soft_floor=0.0)
+    ts = tws.window_sums(tf["band"][:1], tf["area"][:1], tf["gray"][:1], tp,
+                         tg, tprof)
+    jx = jm.window_sums_xla(jf["band"][0], jf["area"][0], jf["gray"][0],
+                            JPeaks(*(x[0] for x in jp)),
+                            jm.CutGeometry(*(x[0] for x in jg)), prof)
+    _close(jx[None], ts, valid)
+    jpal = jpm.window_sums_pallas(jf["band"][:1], jf["area"][:1],
+                                  jf["gray"][:1], jp, jg, prof, interpret=True)
+    _close(jpal, ts, valid)
+    count = np_(ts)[..., 23]
+    if case == "empty_cut":
+        assert not count.any()
+        assert np.isposinf(np_(ts)[..., 21]).all()
+        assert np.isneginf(np_(ts)[..., 22]).all()
+    else:
+        assert (count[valid] > 0).all()
+
+
+@pytest.mark.parametrize("b,k", [(0, 96), (2, 0)])
+def test_empty_batches_match_jax(b, k):
+    """No frames or no peaks: empty sums, as JAX's vmapped window_sums_xla
+    gives them (the port's patch extraction raised on B = 0)."""
+    prof = jcfg.DetectConfig().low_res
+    tprof = convert.config_from_jax(jcfg.PipelineConfig()).detect.low_res
+    z = np.zeros((b, 120, 160), np.float32)
+    xy, valid = np.zeros((b, k, 2), np.float32), np.zeros((b, k), bool)
+    jp = JPeaks(xy=jnp.asarray(xy), score=jnp.zeros((b, k)),
+                valid=jnp.asarray(valid))
+    jz = jnp.asarray(z)
+    js = jax.vmap(lambda a, c, g, p, gm: jm.window_sums_xla(a, c, g, p, gm,
+                                                            prof))(
+        jz, jz, jz, jp, jax.vmap(jm.cut_geometry)(jp))
+    tp = TPeaks(xy=torch.from_numpy(xy), score=torch.zeros((b, k)),
+                valid=torch.from_numpy(valid))
+    tz = torch.from_numpy(z)
+    ts = tws.window_sums(tz, tz, tz, tp, tm.cut_geometry(tp), tprof)
+    assert tuple(ts.shape) == tuple(js.shape) == (b, k, tm.NUM_SUMS)
 
 
 def test_cpu_tensors_take_the_plain_version(fields):

@@ -33,6 +33,9 @@ from vision_basedsensor_tpu_torch.ops.peaks import Peaks
 fields_launches = 0   # window_sums: three fields
 packed_launches = 0   # window_sums_packed / gather_moments
 
+# The kernel packs a patch pixel's row and column into 16 bits.
+MAX_PATCH = 256
+
 
 def window_sums_packed_reference(packed: torch.Tensor, peaks: Peaks,
                                  geom: CutGeometry,
@@ -41,8 +44,13 @@ def window_sums_packed_reference(packed: torch.Tensor, peaks: Peaks,
     return window_sums_xla(*unpack_packed_field(packed), peaks, geom, profile)
 
 
-def _launch(fields, peaks: Peaks, geom: CutGeometry,
-            profile: DetectProfile, what: str) -> torch.Tensor:
+def _prepare(fields, peaks: Peaks, geom: CutGeometry,
+             profile: DetectProfile, what: str):
+    """Check the inputs and prepare the C entry's call: ``(out, args,
+    temps)``, ``args`` being ``vbs_window_sums``'s arguments up to the stream
+    (``None`` when there is nothing to launch), ``out`` the ``(B, K,
+    NUM_SUMS)`` output they write and ``temps`` the tensors they point into
+    besides the inputs: keep both alive while ``args`` is used."""
     ref = fields[0]
     if ref.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ref.device}")
@@ -65,24 +73,37 @@ def _launch(fields, peaks: Peaks, geom: CutGeometry,
                              f"{ref.device}, got {tuple(x.shape)} on "
                              f"{x.device}")
     p = profile.patch_size
+    if p > MAX_PATCH:
+        raise ValueError(f"{what}: patch_size {p} > {MAX_PATCH}")
     start = patch_origins(h, w, peaks.xy, p)
     xy = peaks.xy.float().contiguous()
     g = torch.stack([geom.ex, geom.ey, geom.rhs], dim=-1)     # (B, K, 3, 3)
     g = g.float().reshape(b, k, 9).contiguous()
     out = torch.empty((b, k, NUM_SUMS), dtype=torch.float32, device=ref.device)
     if b == 0 or k == 0:
-        return out
+        return out, None, ()
     floor = float(profile.soft_floor)
     scale = 1.0 / (1.0 - 2.0 * floor) if floor > 0.0 else 1.0
     packed = len(fields) == 1
     f0, f1, f2 = fields * 3 if packed else fields
-    lib = build.library()
-    err = lib.vbs_window_sums(
-        f0.data_ptr(), f1.data_ptr(), f2.data_ptr(), xy.data_ptr(),
-        g.data_ptr(), start.data_ptr(), out.data_ptr(), b, h, w, k, p,
-        float(profile.radial_cutoff_px) ** 2, floor, scale, int(packed),
-        torch.cuda.current_stream(ref.device).cuda_stream)
-    build.check(err, f"{what} kernel launch")
+    args = (f0.data_ptr(), f1.data_ptr(), f2.data_ptr(), xy.data_ptr(),
+            g.data_ptr(), start.data_ptr(), out.data_ptr(), b, h, w, k, p,
+            float(profile.radial_cutoff_px) ** 2, floor, scale, int(packed))
+    return out, args, (start, xy, g)
+
+
+def _launch(fields, peaks: Peaks, geom: CutGeometry,
+            profile: DetectProfile, what: str) -> torch.Tensor:
+    global fields_launches, packed_launches
+    out, args, _temps = _prepare(fields, peaks, geom, profile, what)
+    if args is not None:
+        err = build.library().vbs_window_sums(
+            *args, torch.cuda.current_stream(out.device).cuda_stream)
+        build.check(err, f"{what} kernel launch")
+        if len(fields) == 1:
+            packed_launches += 1
+        else:
+            fields_launches += 1
     return out
 
 
@@ -90,25 +111,21 @@ def window_sums(band: torch.Tensor, area: torch.Tensor, gray: torch.Tensor,
                 peaks: Peaks, geom: CutGeometry,
                 profile: DetectProfile) -> torch.Tensor:
     """The 28 window sums ``(B, K, NUM_SUMS)`` per peak from the three fields
-    ``(B, H, W)`` (the detector's unfused branch)."""
-    global fields_launches
+    ``(B, H, W)`` (the detector's unfused branch). ``band`` and ``area`` are
+    0/1 masks, as the detector makes them: the kernel sums them as
+    integers."""
     if gray.device.type == "cpu":
         return window_sums_xla(band, area, gray, peaks, geom, profile)
-    out = _launch((band, area, gray), peaks, geom, profile, "window_sums")
-    fields_launches += 1
-    return out
+    return _launch((band, area, gray), peaks, geom, profile, "window_sums")
 
 
 def window_sums_packed(packed: torch.Tensor, peaks: Peaks, geom: CutGeometry,
                        profile: DetectProfile) -> torch.Tensor:
     """:func:`window_sums` reading the packed field
     ``gray + 256*band + 512*area`` ``(B, H, W)``, unpacked exactly."""
-    global packed_launches
     if packed.device.type == "cpu":
         return window_sums_packed_reference(packed, peaks, geom, profile)
-    out = _launch((packed,), peaks, geom, profile, "window_sums_packed")
-    packed_launches += 1
-    return out
+    return _launch((packed,), peaks, geom, profile, "window_sums_packed")
 
 
 def gather_moments(packed: torch.Tensor, peaks: Peaks, geom: CutGeometry,

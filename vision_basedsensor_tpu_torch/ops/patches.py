@@ -33,7 +33,7 @@ def extract_patches(img: torch.Tensor, centers_xy: torch.Tensor, patch: int
     r = torch.arange(patch, device=img.device)
     ys = start[..., 1, None, None] + r[:, None]                 # (..., K, P, 1)
     xs = start[..., 0, None, None] + r[None, :]                 # (..., K, 1, P)
-    flat = (ys * w + xs).reshape(*lead, -1)                     # (..., K*P*P)
+    flat = (ys * w + xs).flatten(len(lead))                     # (..., K*P*P)
     vals = torch.gather(img.reshape(*lead, h * w), -1, flat)
     return vals.reshape(start.shape[:-1] + (patch, patch)), start.float()
 
