@@ -6,6 +6,8 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
     python3 chip_smoke.py --only fields [--baseline FIELDS_CU ...] [--out FILE]
     python3 chip_smoke.py --only expand [--baseline EXPAND_CU ...] [--out FILE]
     python3 chip_smoke.py --only window_sums [--baseline WS_CU ...] [--out FILE]
+    python3 chip_smoke.py --only gather [--baseline GATHER_CU ...]
+                          [--probe CUT_CU ...] [--out FILE]
 
 ``--only fields`` runs phases 1-2 and then the fields kernel alone: it
 checks the kernel against ``fused_fields_reference`` (exact equality) at
@@ -42,6 +44,22 @@ pixel visits against the distinct gated pixels; at the unfused shape also
 three probes of the first design (``csrc/window_sums_probes.cu``: its gated
 loads alone, its float32-accumulator twin, and it without the end
 reduction).
+
+``--only gather`` does the same for the window-gather kernel (K3 pack=2, K4
+pack=1, ``csrc/gather.cu``): each version equal (``torch.equal``, on an
+output filled with NaN first) to ``gather_windows_reference`` for both packs
+at 4x437x467 (W % 4 != 0), then checked and timed at each shape of
+ONLY_GATHER on the main path's own inputs (rendered frames through the DoG,
+NCC, the fields kernel and ``select_peaks_from_cells``). Every version is
+timed on its C entry with the wrapper's prepared origins, in GATHER_ROUNDS
+rounds of turns (min/median/max), beside the bound, the plain version, the
+wrapper, ``torch.gather`` on the plain version's precomputed index (the
+library yardstick: equal to the kernel on in-image lanes, clamped to the
+last column elsewhere), PyTorch's ``zero_`` of the same output (the write
+rate the card reaches for these bytes) and two probes of the first design
+(``csrc/gather_probes.cu``: its stores alone, its loads alone; timed, not
+checked); ``--probe`` adds other sources with the ``vbs_gather_windows``
+entry, timed but not checked.
 
 Phases of the full run (any failure raises, so the script exits non-zero
 and prints no result line):
@@ -136,6 +154,12 @@ ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
 # first is the unfused 1080x1920 run's K5 call; the second the packed mode
 # (K6/K7) on the 640x480 B=1024 run's packed field and peaks.
 ONLY_WS = ((1080, 1920, 48, 96, False), (480, 640, 1024, 96, True))
+# --only gather: (rows, cols, batch, max_candidates, pack), the main path's
+# gather calls: K4 in the odd-K run, K3 in the 1080x1920 and 640x480 B=1024
+# runs. GATHER_ROUNDS rounds of turns time each version.
+ONLY_GATHER = ((480, 640, 64, 97, 1), (1080, 1920, 48, 96, 2),
+               (480, 640, 1024, 96, 2))
+GATHER_ROUNDS = 3
 # Window-sum slots that kernel and plain version give bit-equal: lo, hi and
 # the count of gated pixels.
 WS_EXACT_SLOTS = (21, 22, 23)
@@ -162,6 +186,7 @@ SRC = {
 }
 EXPAND_PROBES = "vision_basedsensor_tpu_torch/csrc/expand_probes.cu"
 WS_PROBES = "vision_basedsensor_tpu_torch/csrc/window_sums_probes.cu"
+GATHER_PROBES = "vision_basedsensor_tpu_torch/csrc/gather_probes.cu"
 # The 640x480 B=1024 batch before the scans ran on the card (PERF.md §5,
 # NVIDIA H100 80GB HBM3, 700.00 W): displacement_scan's stage time in two
 # calls, and kernel launches per batch.
@@ -255,24 +280,26 @@ def main(argv=None) -> None:
                          "StreamingPipeline.run pass over the ingest's AVI "
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
-    ap.add_argument("--only", choices=("fields", "expand", "window_sums"),
+    ap.add_argument("--only", choices=("fields", "expand", "window_sums",
+                                       "gather"),
                     default=None,
                     help="check and time only the fields kernel, the "
-                         "sorted-expand kernel or the window-sums kernel")
+                         "sorted-expand kernel, the window-sums kernel or the "
+                         "window-gather kernel")
     ap.add_argument("--baseline", action="append", default=None,
                     help="with --only: another version of that kernel's "
                          "source to check and time in turns with the current "
                          "kernel (repeatable)")
     ap.add_argument("--probe", action="append", default=None,
-                    help="with --only window_sums: a source with the "
-                         "vbs_window_sums entry that computes something "
+                    help="with --only window_sums or gather: a source with "
+                         "that kernel's C entry that computes something "
                          "else (a cut of a design), timed in turns but not "
                          "checked (repeatable)")
     args = ap.parse_args(argv)
     if args.baseline and args.only is None:
         ap.error("--baseline needs --only")
-    if args.probe and args.only != "window_sums":
-        ap.error("--probe needs --only window_sums")
+    if args.probe and args.only not in ("window_sums", "gather"):
+        ap.error("--probe needs --only window_sums or --only gather")
 
     import numpy as np
     import torch
@@ -521,6 +548,36 @@ def main(argv=None) -> None:
                           device=start.device)
         distinct = _distinct(b, h, w, ys, xs, keep)
         return _bound(b * (k // pack) * p * 128 * 4 + 4 * distinct, 0.0)
+
+    def gather_entry(packed, peaks, prof, pack, what):
+        """``(call, start, out)``: ``call(fn, out)`` runs one version ``fn``
+        of the gather C entry (``vbs_gather_windows``'s signature) on the
+        wrapper's prepared origins ``start`` into ``out``; ``out`` is a fresh
+        output. Timing the entry alone leaves out the wrapper's patch-origin
+        ops."""
+        b, h, w = packed.shape
+        k, p = peaks.xy.shape[-2], prof.patch_size
+        start = kg._prep(h, w, peaks, prof)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def call(fn, out):
+            build.check(fn(packed.data_ptr(), start.data_ptr(), out.data_ptr(),
+                           b, h, w, k, p, pack, stream),
+                        f"gather {what} pack={pack} launch")
+            return out
+
+        out = torch.empty((b, k // pack, p, 128), device=dev)
+        return call, start, out
+
+    def gather_library(packed, start, patch, pack):
+        """``fn()`` running ``torch.gather`` on the plain version's
+        precomputed index (the library yardstick): the kernel's values on
+        in-image lanes, the last column's elsewhere; the same bytes
+        written."""
+        b, h, w = packed.shape
+        flat = packed.reshape(b, h * w)
+        idx = kg.gather_index(start, w, patch, pack)[0].flatten(1)
+        return lambda: torch.gather(flat, 1, idx)
 
     def fields_bound(b, h, w, prof):
         """Bytes: ncc, area, gray read, packed written (16 B/px), the cells
@@ -1588,6 +1645,125 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
         return rec
 
+    def gather_measure(what, packed, peaks, prof, pack, versions, probes=None,
+                       timed=True):
+        """Each version of the gather C entry (``{name: fn}``, the current
+        kernel as "kernel") and the wrapper equal to the plain version on
+        every lane; then, if ``timed``, the versions and ``probes`` (timed
+        only) on the C entry in GATHER_ROUNDS rounds of turns, beside the
+        bound, the plain version, the wrapper, ``torch.gather`` and
+        ``zero_``."""
+        h, w = packed.shape[1:]
+        p = prof.patch_size
+        call, start, out = gather_entry(packed, peaks, prof, pack, what)
+        want = kg.gather_windows_reference(packed, start, p, pack)
+        for name, fn in versions.items():
+            got = call(fn, torch.full_like(want, float("nan")))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather {name} pack={pack} != plain at "
+                                     f"{what}: max abs err "
+                                     f"{max_err([got], [want])}")
+        got, gstart = kg.gather_windows(packed, peaks, None, prof, pack=pack)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(gstart, start)):
+            raise AssertionError(f"gather wrapper pack={pack} != plain at "
+                                 f"{what}")
+        err = max_err([got], [want])
+        print(f"check gather pack={pack} {what}: {', '.join(versions)} and "
+              f"the wrapper equal to the plain version on all {want.numel()} "
+              f"lanes, {int((want == 0).sum())} of them 0 (max_abs_err {err})",
+              flush=True)
+        del got, gstart
+        if not timed:
+            return {"max_abs_err": err}
+        fns = {name: (lambda f=fn: call(f, out))
+               for name, fn in {**versions, **(probes or {})}.items()}
+        others = [n for n in fns if n != "kernel"]
+        order = [*others, "kernel", "kernel", *reversed(others)]
+        n_it = 20
+        turns: dict = {who: [] for who in order}
+        for _ in range(GATHER_ROUNDS):
+            for who in order:
+                turns[who].append(_event_ms(fns[who], n_it))
+        lib_ms = _event_ms(gather_library(packed, start, p, pack), n_it)
+        zero_ms = _event_ms(out.zero_, n_it)
+        entry_ms = _event_ms(lambda: kg.gather_windows(
+            packed, peaks, None, prof, pack=pack), n_it)
+        plain_ms = _event_ms(lambda: kg.gather_windows_reference(
+            packed, start, p, pack), 3)
+        bound = gather_bound(start, prof, pack, h, w)
+        ms = statistics.median(turns["kernel"])
+        written = want.numel() * 4
+        print(f"gather pack={pack} {what}: kernel median {ms:.4f} ms ("
+              f"{100 * bound[0] / ms:.1f}% of bound, {written / ms / 1e9:.3f} "
+              "TB/s written); " + "; ".join(
+                  f"{who} min/median/max {min(t):.4f}/{statistics.median(t):.4f}"
+                  f"/{max(t):.4f} ms ({100 * bound[0] / statistics.median(t):.1f}"
+                  f"% of bound)" for who, t in turns.items())
+              + f"; wrapper with its patch-origin ops {entry_ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms; torch.gather on the plain index (equal on "
+              f"in-image lanes) {lib_ms:.4f} ms; torch zero_ of the output "
+              f"{zero_ms:.4f} ms ({written / zero_ms / 1e9:.3f} TB/s); bound "
+              f"{bound[0]:.4f} ms ({bound[1]}; {written} B written) [{card}]",
+              flush=True)
+        return {"max_abs_err": err, "ms": ms, "turns_ms": turns,
+                "entry_ms": entry_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "zero_ms": zero_ms, "bound": bound,
+                "written_bytes": written}
+
+    def gather_only_phase():
+        """--only gather: the gather kernel (and each --baseline version)
+        against the plain version at 4x437x467 for both packs, and checked
+        and timed at each shape of ONLY_GATHER, with the first design's
+        probes; no pipeline."""
+        sig = build._SIGNATURES["vbs_gather_windows"]
+        bases = {os.path.basename(src): _build_alt(src, "vbs_gather_windows")
+                 for src in args.baseline or ()}
+        probes = {f"probe {name}": _build_alt(
+            GATHER_PROBES, f"vbs_gather_probe_{name}", sig)
+            for name in ("stores", "loads")}
+        probes.update({f"probe {os.path.basename(src)}":
+                       _build_alt(src, "vbs_gather_windows")
+                       for src in args.probe or ()})
+        versions = {"kernel": build.library().vbs_gather_windows, **bases}
+        on = False
+        for line in build.build_log.splitlines():   # the gather kernels' ptxas
+            on = "gather_" in line if "Compiling entry" in line else on
+            if on and ("registers" in line or "spill" in line):
+                print(f"  ptxas (gather.cu): {line.strip()}")
+        lo = dcfg.low_res
+        rec: dict = {}
+        _, fr = render(437, 467, 4)
+        packed, cval, cidx = fields_kernel(*fields_inputs(fr, lo), lo)
+        peaks = select_peaks_from_cells(cval, cidx, 467, dcfg.max_candidates,
+                                        float(lo.peak_window))
+        for pack in (1, 2):
+            rec[f"4x437x467 pack={pack}"] = gather_measure(
+                "4x437x467", packed, peaks, lo, pack, versions, timed=False)
+        del fr, packed, cval, cidx, peaks
+        for h, w, batch, k, pack in ONLY_GATHER:
+            prof = profile_of(h)
+            what = f"{batch}x{h}x{w} K={k}"
+            _, frames = render(h, w, batch)
+            ncc, area, gray = fields_inputs(frames, prof)
+            del frames
+            packed, cval, cidx = fields_kernel(ncc, area, gray, prof)
+            del ncc, area, gray
+            peaks = select_peaks_from_cells(cval, cidx, w, k,
+                                            float(prof.peak_window))
+            del cval, cidx
+            torch.cuda.empty_cache()
+            r = rec[f"{what} pack={pack}"] = gather_measure(
+                what, packed, peaks, prof, pack, versions, probes)
+            record(f"{'gather_windows_paired' if pack == 2 else 'gather_windows pack=1'} {what}",
+                   "gather", SRC["gather"][1 if pack == 2 else 2], 0,
+                   r["max_abs_err"], r["ms"], r["plain_ms"], r["bound"],
+                   r["library_ms"], zero_ms=r["zero_ms"])
+            del packed, peaks
+            torch.cuda.empty_cache()
+        return rec
+
     def finish():
         records["kernels"] = kernels
         if args.out:
@@ -1610,6 +1786,10 @@ def main(argv=None) -> None:
         return
     if args.only == "window_sums":
         records["phases"]["window_sums"] = window_sums_only_phase()
+        finish()
+        return
+    if args.only == "gather":
+        records["phases"]["gather"] = gather_only_phase()
         finish()
         return
 
@@ -1699,20 +1879,29 @@ def main(argv=None) -> None:
         g_err = {p: check_gather(packed, peaks, prof, p, what) for p in packs}
         f_ms = _event_ms(lambda: fields_kernel(ncc, area, gray, prof), n_it)
         f_plain = _event_ms(lambda: fields_plain(ncc, area, gray, prof), n_it)
-        g_ms = _event_ms(lambda: kg.gather_windows(
+        g_call, g_start, g_out = gather_entry(packed, peaks, prof, path_pack,
+                                              what)
+        g_ms = _event_ms(lambda: g_call(build.library().vbs_gather_windows,
+                                        g_out), n_it)
+        g_entry = _event_ms(lambda: kg.gather_windows(
             packed, peaks, geom, prof, pack=path_pack), n_it)
         g_plain = _event_ms(
             lambda: gather_plain(packed, peaks, prof, path_pack), n_it)
         f_bound = fields_bound(batch, h, w, prof)
-        g_bound = gather_bound(kg._prep(h, w, peaks, prof), prof, path_pack,
-                               h, w)
+        g_bound = gather_bound(g_start, prof, path_pack, h, w)
+        g_lib = _event_ms(gather_library(packed, g_start, prof.patch_size,
+                                         path_pack), n_it)
+        del g_call, g_start, g_out
         rec["kernel_ms"] = {"fields": [f_ms, f_plain, f_bound],
                             f"gather_pack{path_pack}": [g_ms, g_plain,
-                                                        g_bound]}
+                                                        g_bound, g_lib],
+                            "gather_entry_ms": g_entry}
         print(f"{label}: fields kernel {f_ms:.3f} ms vs plain {f_plain:.3f} "
               f"ms, bound {f_bound[0]:.4f} ms; gather pack={path_pack} "
-              f"{g_ms:.3f} vs {g_plain:.3f} ms, bound {g_bound[0]:.4f} ms "
-              f"({what}) [{card}]", flush=True)
+              f"kernel {g_ms:.4f} ms (wrapper with its patch-origin ops "
+              f"{g_entry:.4f}) vs plain {g_plain:.3f} ms, torch.gather "
+              f"{g_lib:.3f} ms, bound {g_bound[0]:.4f} ms ({what}) [{card}]",
+              flush=True)
         tiled = h * w > 960 * 1280
         record(f"{'fused_fields_tiled' if tiled else 'fused_fields'} {what}",
                "fields", SRC["fields"][2 if tiled else 1],
@@ -1720,7 +1909,7 @@ def main(argv=None) -> None:
         record(f"{'gather_windows_paired' if path_pack == 2 else 'gather_windows pack=1'} {what}",
                "gather", SRC["gather"][1 if path_pack == 2 else 2],
                rec["launches"]["gather"], g_err[path_pack], g_ms, g_plain,
-               g_bound)
+               g_bound, g_lib)
         if label == RUNS[0][0]:
             records["phases"]["window_sums_packed"] = packed_phase(
                 packed, peaks, geom, prof, what, rec["launches"])

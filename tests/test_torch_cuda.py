@@ -122,6 +122,89 @@ def test_gather_kernel_matches_plain(cuda, profile, hw, pack, k):
     assert torch.equal(got, want)
 
 
+# (rows, cols, batch, peaks, pack, profile, patch size or None, packed's
+# offset in floats from a 16-byte boundary).
+_GATHER_CASES = {
+    "corners-640-pack1": (480, 640, 2, 97, 1, "low_res", None, 0),
+    "corners-640-pack2": (480, 640, 2, 96, 2, "low_res", None, 0),
+    "corners-1920-pack1": (1080, 1920, 1, 96, 1, "high_res", None, 0),
+    "corners-1920-pack2": (1080, 1920, 1, 96, 2, "high_res", None, 0),
+    "corners-467-pack1": (437, 467, 2, 97, 1, "low_res", None, 0),
+    "corners-467-pack2": (437, 467, 2, 96, 2, "low_res", None, 0),
+    "patch96": (480, 640, 2, 33, 1, "low_res", 96, 0),
+    "patch128": (480, 640, 2, 33, 1, "low_res", 128, 0),
+    "patch128-467": (437, 467, 2, 33, 1, "low_res", 128, 0),
+    "patch36-pack2": (480, 640, 2, 96, 2, "low_res", 36, 0),
+    "k1-pack1": (480, 640, 3, 1, 1, "low_res", None, 0),
+    "k2-pack2": (480, 640, 3, 2, 2, "low_res", None, 0),
+    "b0": (480, 640, 0, 96, 2, "low_res", None, 0),
+    "k0": (480, 640, 2, 0, 1, "low_res", None, 0),
+    "many-rows-pack2": (64, 256, 3000, 12, 2, "low_res", None, 0),
+    "many-rows-pack1": (64, 256, 1500, 13, 1, "low_res", None, 0),
+    "offset-640": (480, 640, 2, 96, 2, "low_res", None, 1),
+    "narrow-128": (64, 128, 50, 12, 2, "low_res", None, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(_GATHER_CASES))
+def test_gather_kernel_edge_cases(cuda, case):
+    """``torch.equal`` to the plain version, zeros included, on what a
+    window copy can get wrong: peaks at the four corners and along the
+    edges (origins at W - P, lanes past W, origins off a 16-byte boundary)
+    at W = 640, 1920 and 467; pack=1 at P = 96 and 128, and P = 36; K = 1
+    and 2; B = 0 and K = 0 (no launch); many output rows; a ``packed``
+    that starts 4 bytes past a 16-byte boundary; a frame narrower than 132
+    columns. The output is allocated over NaNs, so a lane left unwritten
+    fails."""
+    import dataclasses
+
+    h, w, b, k, pack, profile, patch, offset = _GATHER_CASES[case]
+    prof = getattr(DetectConfig(), profile)
+    if patch is not None:
+        prof = dataclasses.replace(prof, patch_size=patch,
+                                   radial_cutoff_px=patch / 2 - 1)
+    rng = np.random.default_rng(8)
+    base = torch.empty(b * h * w + 4, device=cuda)
+    packed = base[offset:offset + b * h * w].view(b, h, w)
+    packed.copy_(torch.as_tensor(rng.integers(1, 2 ** 20, (b, h, w)),
+                                 dtype=torch.float32))
+    xy = np.stack([rng.integers(0, w, (b, k)), rng.integers(0, h, (b, k))],
+                  -1).astype(np.float32)
+    edges = [(w - 1, h - 1), (0, 0), (w - 1, 0), (0, h - 1), (w // 2, 0),
+             (w - 1, h // 2), (0, h // 2), (w // 2, h - 1), (w - 2, 3)]
+    n = min(k, len(edges))
+    if n:
+        xy[:, :n] = edges[:n]
+    peaks = Peaks(xy=torch.as_tensor(xy, device=cuda),
+                  score=torch.ones((b, k), device=cuda),
+                  valid=torch.ones((b, k), dtype=torch.bool, device=cuda))
+    numel = b * (k // pack) * prof.patch_size * 128
+    torch.full((numel,), float("nan"), device=cuda)   # freed: reused below
+    before = kg.gather_launches
+    got, start = kg.gather_windows(packed, peaks, None, prof, pack=pack)
+    want = kg.gather_windows_reference(packed, start, prof.patch_size, pack)
+    torch.cuda.synchronize()
+    assert kg.gather_launches == before + int(numel > 0)
+    assert got.shape == want.shape == (b, k // pack, prof.patch_size, 128)
+    assert torch.equal(got, want)
+    if numel:
+        assert bool((start[..., 0] == w - prof.patch_size).any())
+        assert float(got.abs().sum()) > 0
+
+
+def test_gather_wrapper_refuses_bad_inputs(cuda):
+    prof = DetectConfig().low_res
+    packed = torch.rand((2, 64, 96), device=cuda)
+    peaks = _peaks(np.random.default_rng(9), 2, 6, 64, 96, cuda)
+    for bad in (packed.double(), packed.transpose(1, 2).contiguous()
+                .transpose(1, 2), packed[:, :, :48]):
+        with pytest.raises(ValueError):
+            kg.gather_windows(bad, peaks, None, prof, pack=2)
+    with pytest.raises(ValueError):
+        kg.gather_windows(packed, peaks._replace(xy=peaks.xy.cpu()), None,
+                          prof)
+
+
 def _sums_close(got, want, valid):
     """The JAX tests' window-sums tolerance (rtol 1e-5, atol 2e-2 on valid
     peaks, equal finite patterns)."""

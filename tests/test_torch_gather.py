@@ -80,6 +80,29 @@ def test_gather_rejects_odd_pairs_and_wide_patches():
         tgather.gather_windows(packed, tp, tcut(tp), prof, pack=3)
 
 
+@pytest.mark.parametrize("pack", [1, 2])
+@pytest.mark.parametrize("b,k", [(0, 6), (2, 0), (0, 0)])
+def test_gather_empty_batch_or_peaks(b, k, pack):
+    """B = 0 or K = 0 gives an empty ``(B, K // pack, P, 128)`` float32
+    output and ``(B, K, 2)`` origins, as the card path returns them. JAX's
+    interpret mode raises at B = 0, so the card path's contract is the
+    reference here."""
+    prof = TDetectConfig().low_res
+    rng = np.random.default_rng(3)
+    xy = torch.as_tensor(rng.uniform(0, 60, (b, k, 2)), dtype=torch.float32)
+    peaks = tgather.Peaks(xy=xy, score=torch.ones((b, k)),
+                          valid=torch.ones((b, k), dtype=torch.bool))
+    packed = torch.as_tensor(rng.random((b, 64, 96)), dtype=torch.float32)
+    before = tgather.gather_launches
+    out, start = tgather.gather_windows(packed, peaks, tcut(peaks), prof,
+                                        pack=pack)
+    assert out.shape == (b, k // pack, prof.patch_size, 128)
+    assert out.dtype == torch.float32 and start.shape == (b, k, 2)
+    assert torch.equal(out, tgather.gather_windows_reference(
+        packed, start, prof.patch_size, pack))
+    assert tgather.gather_launches == before
+
+
 def test_cpu_dispatch_does_not_launch():
     rng = np.random.default_rng(1)
     _, tp = peaks_pair(rng, 1, 6, 64, 96)

@@ -14,12 +14,20 @@
 // never leave the frame (cy_k <= H - P). The TPU kernel leaves other data in
 // the out-of-image lanes; the moment stage gates them out by coordinate.
 //
-// Bound on the H100: memory. Each output element is one 4 B read and one 4 B
-// write; the (8, 128)-aligned DMA plus lane roll of the TPU kernel is a
-// tiling workaround Hopper does not need. Design: one block per (frame,
-// output row) copies its P x 128 slab directly, consecutive threads on
-// consecutive columns, so each warp reads 32 contiguous floats of one image
-// row (two runs of 32 per 64-lane slot) and writes 128 B contiguously.
+// Bound on the H100: memory, mostly the written bytes (the output outweighs
+// the distinct in-image pixels the windows read). The (8, 128)-aligned DMA
+// plus lane roll of the TPU kernel is a tiling workaround Hopper does not
+// need. Design: one block per (frame, output row) copies its P x 128 slab
+// directly, consecutive threads on consecutive columns, so each warp reads
+// 32 contiguous floats of one image row (two runs of 32 per 64-lane slot)
+// and writes 128 B contiguously; 8 blocks of 256 threads an SM keep enough
+// loads in flight to overlap them with the stores. On an H100 (SXM, 700 W)
+// it runs at 66-78% of the bound at the detector's shapes (`chip_smoke.py
+// --only gather`). A design that brings the windows in with Hopper's copy
+// engine (TMA), csrc/gather_tma.cu, timed against this one by `--only
+// gather --baseline`, was 1-15% slower: the engine takes only 16-byte
+// aligned row starts, so its boxes are realigned through shared memory by
+// the threads that store, which costs what the asynchronous loads save.
 #include <cuda_runtime.h>
 
 namespace {

@@ -43,12 +43,13 @@ def _prep(h: int, w: int, peaks: Peaks, profile: DetectProfile) -> torch.Tensor:
     return patch_origins(h, w, peaks.xy, p)
 
 
-def gather_windows_reference(packed: torch.Tensor, start: torch.Tensor,
-                             patch: int, pack: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: ``(B, K // pack, patch, 128)``."""
-    b, h, w = packed.shape
+def gather_index(start: torch.Tensor, w: int, patch: int, pack: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each output element's pixel in its frame, ``y * w + x`` with ``x``
+    clamped to the last column, and whether ``x < w``; both
+    ``(B, K // pack, patch, 128)``."""
     k = start.shape[-2]
-    dev = packed.device
+    dev = start.device
     lanes = torch.arange(LANES, device=dev)
     j = lanes // 64 if pack == 2 else torch.zeros_like(lanes)
     off = lanes - 64 * j
@@ -58,10 +59,18 @@ def gather_windows_reference(packed: torch.Tensor, start: torch.Tensor,
     x = sx + off
     y = sy[:, :, None, :] + torch.arange(patch, device=dev)[:, None]
     inside = (x < w)[:, :, None, :].expand_as(y)
-    flat = y * w + torch.clamp(x, max=w - 1)[:, :, None, :]
+    return y * w + torch.clamp(x, max=w - 1)[:, :, None, :], inside
+
+
+def gather_windows_reference(packed: torch.Tensor, start: torch.Tensor,
+                             patch: int, pack: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``(B, K // pack, patch, 128)``;
+    empty when B or K is 0, as the kernel's wrapper returns it."""
+    b, h, w = packed.shape
+    flat, inside = gather_index(start, w, patch, pack)
     vals = torch.gather(packed.reshape(b, h * w), 1,
-                        flat.reshape(b, -1)).reshape(y.shape)
-    return torch.where(inside, vals, torch.zeros((), device=dev))
+                        flat.flatten(1)).reshape(flat.shape)
+    return torch.where(inside, vals, torch.zeros((), device=packed.device))
 
 
 def gather_windows(packed: torch.Tensor, peaks: Peaks, geom: CutGeometry,
