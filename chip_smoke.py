@@ -87,7 +87,10 @@ and prints no result line):
      run also profiles one batch (kernel launches per batch) and holds the
      scan kernel against its plain version on the run's own positions: all
      frames, the second half resumed from the first half's carry, and zero
-     frames with a carry; timed beside its bound;
+     frames with a carry; timed beside its bound, with its dependency-chain
+     floor printed as text (steps x dependent instructions a step, counted
+     from the source, x DEP_CYCLES at the card's top SM clock; the
+     association kernel's too, in phase 6);
   5. the packed-field window sums (the reference's window_sums_packed and
      fused gather_moments) on the 640x480 B=1024 run's packed field and
      peaks: against the plain version, and timed against the split path the
@@ -113,7 +116,20 @@ and prints no result line):
      every frame. Numbers: decode-only fps per transport, decode-fed fps of
      run against process on the decoded frames (median of three passes in
      turns), the host entropy decode's ms per frame and the device decode's
-     stages.
+     stages;
+  8. the replay CLI (cli/main.py, called in-process) on phase 7's .avi at
+     CLI_CHUNK: track --tpu-decode byte-equal to write_tracking_csv of
+     StreamingPipeline.run over MjpegAviCudaSource on the same file, 65/65
+     markers in every frame; track on the decoded frames saved as .npy
+     byte-equal to StreamingPipeline.process over them in the same chunks;
+     reconstruct --no-warmup byte-equal to write_coords_table of
+     reconstruct_sequence on read_tracking_csv's arrays; detect on the
+     first frame, 65 markers. Each command runs with the counts set to 0
+     just before and read just after, and launches exactly its kernels
+     (track --tpu-decode: fields, gather, expand, scan; track .npy: fields,
+     gather, scan; reconstruct: scan; detect: fields, gather). Numbers:
+     track --tpu-decode's frames/s beside run's on the same file (two each,
+     in turns) and the seconds of writing markers.csv.
 The line before the last is the kernels' JSON record (each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
@@ -147,6 +163,8 @@ STREAM = (1024, 64, (-0.18, 0.05, 0.0, 0.0, 0.0))
 # The ingest run (bench.py:122-159): frames, batch, JPEG quality, and the
 # period after which the rendered drift restarts (bench.py:153-154).
 INGEST = (2048, 256, 70, 256)
+# The CLI phase's --chunk: the CLI's default (cli/main.py), given explicitly.
+CLI_CHUNK = 256
 # --only fields: (rows, cols, batches), each batch the first frames of one
 # render, so the 64-frame inputs are the first 64 of the 1024.
 ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
@@ -187,6 +205,32 @@ SRC = {
 EXPAND_PROBES = "vision_basedsensor_tpu_torch/csrc/expand_probes.cu"
 WS_PROBES = "vision_basedsensor_tpu_torch/csrc/window_sums_probes.cu"
 GATHER_PROBES = "vision_basedsensor_tpu_torch/csrc/gather_probes.cu"
+# The two scans' dependency chains: the dependent instructions of one step
+# on the path from its carry to the next step's carry, counted by reading
+# the sources (not checked against SASS: recount them when a source
+# changes), so the floor is printed, never recorded. Each is charged
+# DEP_CYCLES, the latency between dependent instructions on the SM's FP32
+# and integer pipes; sqrt's MUFU, shared loads, shuffles and the barrier
+# take longer, so steps x chain x DEP_CYCLES at the card's top SM clock is
+# a floor (PERF.md §6).
+DEP_CYCLES = 4
+# csrc/displacement_scan.cu: one instruction stands between a frame's carry
+# and the next frame's, the add `cum += dnz` (the carry's selects `if (ok)
+# lx = px` beside it); the norm and gate that give dnz feed no later carry.
+SCAN_CHAIN = 1
+
+
+def _assoc_chain(k: int, n: int, lanes: int = 8) -> int:
+    """csrc/associate.cu, one frame: the first distance from the carry (2
+    subtractions in parallel, a product, a sum, sqrt's 4) 7; the lane's
+    compare-and-select chain over its ceil(k / lanes) candidates, 3 each; 3
+    shuffle rounds of (shuffle, 3-deep compare) 12; shared store, barrier,
+    loads 3; the owner tests' 3-deep compare then an OR chain over ceil(n /
+    lanes) slots; 3 shuffle rounds of (shuffle, test, or) 9; the flag, the
+    pick's load and the carry's select 3."""
+    return (7 + 3 * -(-k // lanes) + 12 + 3 + 3 + -(-n // lanes) + 9 + 3)
+
+
 # The 640x480 B=1024 batch before the scans ran on the card (PERF.md §5,
 # NVIDIA H100 80GB HBM3, 700.00 W): displacement_scan's stage time in two
 # calls, and kernel launches per batch.
@@ -199,6 +243,23 @@ def _card() -> str:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def _chain_note(steps: int, chain: int) -> str:
+    """The printed dependency-chain floor of a scan: steps x chain x
+    DEP_CYCLES at the card's top SM clock (nvidia-smi clocks.max.sm). Text
+    only, never a record: the chain is counted from the source, not
+    measured. Where nvidia-smi gives no clock, says so."""
+    out = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    try:
+        mhz = float(out.stdout.strip())
+    except ValueError:
+        return f"dependency chain not computed (clocks.max.sm {out.stdout!r})"
+    ms = 1e-3 * steps * chain * DEP_CYCLES / mhz
+    return (f"dependency chain {steps} steps x {chain} x {DEP_CYCLES} cycles "
+            f"at {mhz:.0f} MHz = {ms:.5f} ms")
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -870,9 +931,8 @@ def main(argv=None) -> None:
         # an add (20).
         bound = _bound(b * n * (13 + 37) + 30 * n, 20 * b * n)
         print(f"displacement_scan {what}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); the "
-              f"kernel runs {b} dependent steps a marker, which set its floor "
-              f"above the bound [{card}]", flush=True)
+              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+              f"{_chain_note(b, SCAN_CHAIN)} [{card}]", flush=True)
         record(f"displacement_scan {what}", "scan", SRC["scan"][1], launches,
                err, ms, plain_ms, bound)
         return {"ms": ms, "plain_ms": plain_ms, "bound": bound,
@@ -919,9 +979,8 @@ def main(argv=None) -> None:
         bound = _bound(b * k * 21 + n * 9 + b * n * 21 + 8 * n,
                        b * (7 * n * k + n * n))
         print(f"associate_sequential {what}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); the "
-              f"kernel runs {b} dependent frames, which set its floor above "
-              f"the bound [{card}]", flush=True)
+              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+              f"{_chain_note(b, _assoc_chain(k, n))} [{card}]", flush=True)
         record(f"associate_sequential {what}", "associate",
                SRC["associate"][1], launches, 0.0, ms, plain_ms, bound)
         return {"ms": ms, "plain_ms": plain_ms, "bound": bound}
@@ -1244,7 +1303,8 @@ def main(argv=None) -> None:
     def ingest_phase():
         """The production MJPEG ingest: host entropy decode, the four device
         transports over the sorted-expand kernel, device_feed and
-        StreamingPipeline.run (bench.py:122-159,250-261)."""
+        StreamingPipeline.run (bench.py:122-159,250-261). The CLI phase
+        runs on the same AVI inside it; returns both phases' records."""
         import tempfile
 
         from vision_basedsensor_tpu_torch.io.video import (MjpegAviCudaSource,
@@ -1440,9 +1500,160 @@ def main(argv=None) -> None:
                     statistics.median(s_r))
             del decoded
             torch.cuda.empty_cache()
+            cli = cli_phase(path, td)
         record(f"expand_sorted tdelta {batch}x{h}x{w}", "expand",
                SRC["expand"][1], launches["expand_sorted"], xm["max_abs_err"],
                xm["ms"], xm["plain_ms"], xm["bound"], xm["library_ms"])
+        return rec, cli
+
+    def cli_phase(path, workdir):
+        """The replay CLI in-process on the ingest's AVI at its default
+        --chunk: track --tpu-decode, track on the decoded frames as .npy,
+        reconstruct, and detect on one frame, each held to the library
+        calls it stands for (byte-equal files) with its launches counted."""
+        import io
+
+        from vision_basedsensor_tpu_torch.cli import main as cli
+        from vision_basedsensor_tpu_torch.io.table import (read_tracking_csv,
+                                                           write_coords_table,
+                                                           write_tracking_csv)
+        from vision_basedsensor_tpu_torch.io.video import MjpegAviCudaSource
+        from vision_basedsensor_tpu_torch.reconstruct import \
+            reconstruct_sequence
+        from vision_basedsensor_tpu_torch.track.associate import TrackedFrames
+
+        n, chunk = INGEST[0], CLI_CHUNK
+        ccfg = PipelineConfig()                  # the CLI's own default
+        cam = default_scene(480, 640, device=dev).cam
+        rec: dict = {"frames": n, "chunk": chunk, "launches": {}}
+
+        def run_cli(name, argv, expect):
+            """``vbs-torch argv`` with the counts set to 0 just before and
+            read just after; its stdout and wall seconds."""
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+            launches = read_counts()
+            rec["launches"][name] = launches
+            if any((v > 0) != (k in expect) for k, v in launches.items()):
+                raise AssertionError(f"cli {name}: expected launches of "
+                                     f"exactly {sorted(expect)}, got "
+                                     f"{launches}")
+            print(f"cli: {name} in {s:.3f} s; launches {launches} [{card}]",
+                  flush=True)
+            return out.getvalue(), s
+
+        def write_tracked(outs, csv_path):
+            """markers.csv of pipeline outputs, as cmd_track writes it."""
+            tr = [cli._host(o.tracked) for o in outs]
+            cat = lambda k: np.concatenate([getattr(x, k) for x in tr])
+            write_tracking_csv(csv_path, tr[0]._replace(
+                xy=cat("xy"), axes=cat("axes"), angle=cat("angle"),
+                valid=cat("valid")))
+            return cat("valid")
+
+        def same_bytes(a, b, what):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"cli: {what}: {a} != {b}")
+
+        def run_pass():
+            sp = StreamingPipeline(cam, ccfg, device=dev)
+            return list(sp.run(MjpegAviCudaSource(path, device=dev), chunk))
+
+        # 1. track --tpu-decode against StreamingPipeline.run, in turns.
+        tpu_dir = os.path.join(workdir, "cli_tpu")
+        tpu_argv = ["track", path, "--tpu-decode", "--chunk", str(chunk),
+                    "--output-dir", tpu_dir]
+        s_cli = [run_cli("track --tpu-decode", tpu_argv,
+                         {"fields", "gather", "expand_sorted", "scan"})[1]]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = run_pass()
+        torch.cuda.synchronize()
+        s_run = [time.perf_counter() - t]
+        want = os.path.join(workdir, "run_markers.csv")
+        t = time.perf_counter()
+        valid = write_tracked(outs, want)
+        rec["write_csv_s"] = time.perf_counter() - t
+        del outs
+        same_bytes(os.path.join(tpu_dir, "markers.csv"), want,
+                   "track --tpu-decode vs StreamingPipeline.run")
+        per_frame = valid.sum(-1)
+        if valid.shape[0] != n or per_frame.min() != 65:
+            raise AssertionError(f"cli: expected 65/65 markers in all {n} "
+                                 f"frames, got min {per_frame.min()} over "
+                                 f"{valid.shape[0]}")
+        s_run += _wall_s(run_pass, 1)
+        s_cli.append(run_cli("track --tpu-decode (timed)", tpu_argv,
+                             {"fields", "gather", "expand_sorted", "scan"})[1])
+        same_bytes(os.path.join(tpu_dir, "markers.csv"), want,
+                   "track --tpu-decode (second run) vs StreamingPipeline.run")
+        rec.update(s_cli=s_cli, s_run=s_run,
+                   fps_cli=n / statistics.median(s_cli),
+                   fps_run=n / statistics.median(s_run))
+        print(f"cli: track --tpu-decode {rec['fps_cli']:.1f} frames/s (s "
+              + ", ".join(f"{x:.4f}" for x in s_cli) + ") beside "
+              f"StreamingPipeline.run {rec['fps_run']:.1f} frames/s (s "
+              + ", ".join(f"{x:.4f}" for x in s_run) + f") on {n} 640x480 "
+              f"frames, chunk {chunk}; writing markers.csv "
+              f"{rec['write_csv_s']:.3f} s; byte-equal, 65/65 markers in "
+              f"every frame [{card}]", flush=True)
+
+        # 2. track on the same decoded frames as .npy against process().
+        decoded = torch.cat(list(MjpegAviCudaSource(path, device=dev)
+                                 .batches(chunk))).to(torch.uint8).cpu()
+        npy = os.path.join(workdir, "decoded.npy")
+        np.save(npy, decoded.numpy())
+        npy_dir = os.path.join(workdir, "cli_npy")
+        run_cli("track .npy", ["track", npy, "--chunk", str(chunk),
+                               "--output-dir", npy_dir],
+                {"fields", "gather", "scan"})
+        sp = StreamingPipeline(cam, ccfg, device=dev)
+        want = os.path.join(workdir, "process_markers.csv")
+        write_tracked([sp.process(decoded[i:i + chunk])
+                       for i in range(0, n, chunk)], want)
+        del decoded, sp
+        same_bytes(os.path.join(npy_dir, "markers.csv"), want,
+                   "track .npy vs StreamingPipeline.process")
+
+        # 3. reconstruct against reconstruct_sequence on the CSV's arrays.
+        csv_path = os.path.join(tpu_dir, "markers.csv")
+        coords = os.path.join(workdir, "cli_3d.csv")
+        run_cli("reconstruct", ["reconstruct", csv_path, "--no-warmup",
+                                "--output", coords], {"scan"})
+        data = read_tracking_csv(csv_path)
+        f32 = lambda k: torch.as_tensor(data[k], dtype=torch.float32,
+                                        device=dev)
+        recon = reconstruct_sequence(cam, TrackedFrames(
+            xy=f32("xy"), ref_xy=f32("ref_xy"), axes=f32("axes"),
+            angle=f32("angle"), ring=torch.zeros(65, dtype=torch.int32,
+                                                 device=dev),
+            valid=torch.as_tensor(data["valid"], device=dev)),
+            ccfg.reconstruct, apply_warmup=False)
+        want = os.path.join(workdir, "sequence_3d.csv")
+        write_coords_table(want, cli._host(recon))
+        same_bytes(coords, want, "reconstruct vs reconstruct_sequence")
+        rec["observations"] = int(recon.seen.sum())
+        del recon
+
+        # 4. detect on the first decoded frame.
+        frame0 = os.path.join(workdir, "frame0.npy")
+        np.save(frame0, np.load(npy, mmap_mode="r")[0])
+        text, _ = run_cli("detect", ["detect", frame0], {"fields", "gather"})
+        rows = text.strip().splitlines()[1:]
+        rec["detected"] = len(rows)
+        if len(rows) != 65:
+            raise AssertionError(f"cli: detect found {len(rows)} markers")
+        print(f"cli: the four commands' outputs equal the library calls "
+              f"(track --tpu-decode, track .npy, reconstruct: byte-equal "
+              f"files, {rec['observations']} observations); detect 65 "
+              f"markers [{card}]", flush=True)
         return rec
 
     def fields_phase():
@@ -1921,7 +2132,7 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     records["phases"]["stream"] = stream_phase()
-    records["phases"]["ingest"] = ingest_phase()
+    records["phases"]["ingest"], records["phases"]["cli"] = ingest_phase()
     finish()
 
 

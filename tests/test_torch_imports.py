@@ -36,9 +36,13 @@ def test_port_imports_without_jax():
     names = [m.name for m in pkgutil.walk_packages(
         vision_basedsensor_tpu_torch.__path__, "vision_basedsensor_tpu_torch.")]
     assert int(n) == len(names) >= 20
-    # The session module reads calibration artifacts only through the
-    # (unported) calibrate package, never the JAX one.
-    assert "vision_basedsensor_tpu_torch.io.session" in names
+    # The session module reads calibration artifacts through the port's
+    # calibrate package, never the JAX one; the CLI and its table, plot and
+    # overlay modules stand alone too.
+    for mod in ("io.session", "calibrate", "calibrate.artifact", "cli.main",
+                "io.table", "io.xlsx", "io.schemas", "analysis.series",
+                "analysis.plots", "detect.overlay"):
+        assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
     # The ingest, native decoder loader included, stands alone too.
     for mod in ("native", "io.video", "io.mjpeg", "io.jpeg_encode", "ops.jpeg",
                 "ops.expand", "ops.cuda.expand"):

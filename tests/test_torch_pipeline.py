@@ -130,23 +130,42 @@ def test_cpu_run_launches_no_kernel(runs):
                                     "load_calibration"])
 def test_unported_options_raise(runs, change, tmp_path):
     """What the port still lacks raises NotImplementedError, never a silent
-    fallback: bf16 filters, and session calibration artifacts (calibrate/
-    is not ported)."""
+    fallback: bf16 filters. Session calibration artifacts raised here until
+    ``calibrate/artifact.py`` was ported; now a session saves a real
+    artifact and loads it back, on a session written by the JAX package
+    too (tests/test_torch_io_table.py holds the bytes)."""
+    from vision_basedsensor_tpu.calibrate import CalibrationArtifact as JArt
+    from vision_basedsensor_tpu.io import session as jsession
+
+    from vision_basedsensor_tpu_torch.calibrate import CalibrationArtifact
     from vision_basedsensor_tpu_torch.io import session
 
-    with pytest.raises(NotImplementedError):
-        if change == "fast_filters":
+    art = dict(fx=600.5, fy=601.25, cx=192.0, cy=120.0, skew=0.0,
+               dist=np.array([-0.18, 0.05, 0.001, -0.002, 0.0]),
+               R_wc=np.eye(3), T_wc=np.array([0.0, 0.0, 40.0]))
+    if change == "fast_filters":
+        with pytest.raises(NotImplementedError):
             tc = convert.config_from_jax(dataclasses.replace(
                 runs["jc"], detect=dataclasses.replace(jcfg.DetectConfig(),
                                                        fast_filters=True)))
             tpipe.run_video(to_torch(runs["frames"][:1]), runs["cam"], tc)
-        elif change == "save_calibration":
-            ref = convert.reference_from_numpy(runs["jref"], device="cpu")
-            session.save_session(str(tmp_path), ref, runs["tc"],
-                                 calibration=object())
-        else:
-            (tmp_path / "calibration.json").write_text("{}")
-            session.load_session(str(tmp_path), device="cpu")
+        return
+    if change == "save_calibration":
+        ref = convert.reference_from_numpy(runs["jref"], device="cpu")
+        session.save_session(str(tmp_path), ref, runs["tc"],
+                             calibration=CalibrationArtifact(**art))
+        loaded = jsession.load_session(str(tmp_path)).calibration
+    else:
+        jsession.save_session(str(tmp_path), runs["jref"], runs["jc"],
+                              calibration=JArt(**art))
+        loaded = session.load_session(str(tmp_path),
+                                      device="cpu").calibration
+    assert (tmp_path / "calibration.json").exists()
+    for name, want in art.items():
+        np.testing.assert_array_equal(np.asarray(getattr(loaded, name)),
+                                      want, name)
+    cam = CalibrationArtifact(**art).to_camera(device="cpu")
+    np.testing.assert_allclose(cam.dist.numpy(), art["dist"], rtol=1e-7)
 
 
 def test_streaming_pipeline_not_ported(runs):

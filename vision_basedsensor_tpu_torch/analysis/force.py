@@ -1,8 +1,9 @@
 """Per-frame contact state: contact-plane tilt and mean displacement.
 
-Port of ``vision_basedsensor_tpu/analysis/force.py:contact_state_sequence``
-(C14/C15 in the hot path): a batched masked plane fit over each frame's
-from-first-sighting displacement field.
+Port of ``vision_basedsensor_tpu/analysis/force.py``: ``contact_state_sequence``
+(C14/C15 in the hot path), a batched masked plane fit over each frame's
+from-first-sighting displacement field, and ``start_end_displacement``
+(C17), the frame-range-averaged start/end displacement.
 """
 from __future__ import annotations
 
@@ -43,3 +44,25 @@ def contact_state_sequence(recon: Reconstruction, cfg: AnalysisConfig,
     return ContactState(tilt_deg=plane.tilt_deg, plane=plane,
                         mean_vector=mean_vec, mean_magnitude=mean_mag,
                         valid=valid.sum(-1) >= 3)
+
+
+def start_end_displacement(recon: Reconstruction,
+                           start_range: tuple[int, int],
+                           end_range: tuple[int, int]
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Displacement between frame-range-averaged positions
+    (``LocalAnalysis.calculate_average_coordinates``, :53-60): positions are
+    averaged over ``frameno in [start, end]`` (inclusive), and the
+    displacement is end-average minus start-average. Returns
+    ``((65, 3) displacement, (65,) valid)``."""
+    frames = torch.arange(recon.world.shape[0], device=recon.world.device)
+
+    def avg(rng):
+        in_rng = (frames >= rng[0]) & (frames <= rng[1])
+        m = recon.seen & in_rng[:, None]
+        return masked_mean(recon.world, m[..., None], axis=0), m.any(dim=0)
+
+    start, s_ok = avg(start_range)
+    end, e_ok = avg(end_range)
+    ok = s_ok & e_ok
+    return torch.where(ok[:, None], end - start, torch.zeros_like(end)), ok

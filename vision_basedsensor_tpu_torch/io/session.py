@@ -5,9 +5,8 @@ format (a directory holding ``state.npz`` + ``config.json``), so a session
 saved by either package resumes in the other: the frame-0 reference table
 (with the photometric axis scale), the pipeline config, the
 displacement-scan carry, the sequential-association last-seen positions and
-the global frame count. The calibration artifact (``calibration.json``)
-needs ``calibrate/``, which is not ported: saving one or loading a
-directory that holds one raises ``NotImplementedError``.
+the global frame count, and the calibration artifact
+(``calibration.json``, ``calibrate/artifact.py``) when the session has one.
 """
 from __future__ import annotations
 
@@ -17,19 +16,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vision_basedsensor_tpu_torch.calibrate import CalibrationArtifact
 from vision_basedsensor_tpu_torch.config import (PipelineConfig, from_json,
                                                  to_json)
 from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
 from vision_basedsensor_tpu_torch.track.rings import ReferenceMarkers
 
-_NO_CALIBRATION = ("session calibration artifacts need calibrate/, which is "
-                   "not ported to vision_basedsensor_tpu_torch")
-
 
 class SessionState(NamedTuple):
     ref: ReferenceMarkers
     config: PipelineConfig
-    calibration: None               # always None until calibrate/ is ported
+    calibration: CalibrationArtifact | None
     scan_carry: dict                # displacement-scan carry ({} if fresh)
     assoc_xy: torch.Tensor | None   # sequential-mode last-seen (65, 2)
     frames_seen: int = 0            # global frame count (warm-up offset)
@@ -43,8 +40,6 @@ def save_session(path: str, ref: ReferenceMarkers, config: PipelineConfig,
                  calibration=None, scan_carry: dict | None = None,
                  assoc_xy=None, frames_seen: int = 0) -> None:
     """Write a session checkpoint (directory with npz + json)."""
-    if calibration is not None:
-        raise NotImplementedError(_NO_CALIBRATION)
     os.makedirs(path, exist_ok=True)
     arrays = {
         "ref_xy": _np(ref.xy),
@@ -61,13 +56,13 @@ def save_session(path: str, ref: ReferenceMarkers, config: PipelineConfig,
         arrays["assoc_xy"] = _np(assoc_xy)
     np.savez(os.path.join(path, "state.npz"), **arrays)
     to_json(config, os.path.join(path, "config.json"))
+    if calibration is not None:
+        calibration.save_json(os.path.join(path, "calibration.json"))
 
 
 def load_session(path: str, device=CUDA) -> SessionState:
     """Read a session checkpoint onto ``device`` (the card by default)."""
     device = resolve(device)
-    if os.path.exists(os.path.join(path, "calibration.json")):
-        raise NotImplementedError(_NO_CALIBRATION)
 
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
@@ -85,6 +80,10 @@ def load_session(path: str, device=CUDA) -> SessionState:
         assoc_xy = t(z["assoc_xy"]) if "assoc_xy" in z.files else None
         fseen = int(z["frames_seen"]) if "frames_seen" in z.files else 0
     config = from_json(os.path.join(path, "config.json"))
-    return SessionState(ref=ref, config=config, calibration=None,
+    calib = None
+    cpath = os.path.join(path, "calibration.json")
+    if os.path.exists(cpath):
+        calib = CalibrationArtifact.load_json(cpath)
+    return SessionState(ref=ref, config=config, calibration=calib,
                         scan_carry=carry, assoc_xy=assoc_xy,
                         frames_seen=fseen)

@@ -4,9 +4,10 @@ Port of ``vision_basedsensor_tpu/io/video.py``: ``VideoSource``,
 ``ArrayVideoSource``, ``SyntheticVideoSource`` (the port's renderer), the
 RIFF walk ``_iter_avi_video_chunks``, ``MjpegAviWriter``,
 ``MjpegAviCudaSource`` (the twin of ``MjpegAviTpuSource``: host entropy
-decode, dequant-IDCT on the card) and ``device_feed``. The host-decode
-sources ``FileVideoSource`` and ``MjpegAviSource`` need cv2 and are not
-ported.
+decode, dequant-IDCT on the card) and ``device_feed``, and the host-decode
+sources and sink: ``FileVideoSource`` (cv2, sequential), ``MjpegAviSource``
+(cv2 on a thread pool) and ``VideoWriter``. These three import cv2 only
+when they are built, so the module imports without it.
 """
 from __future__ import annotations
 
@@ -18,6 +19,15 @@ import numpy as np
 import torch
 
 from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
+
+
+def _cv2():
+    """cv2, or None where opencv-python is not installed."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
 
 
 class VideoSource:
@@ -53,6 +63,38 @@ class ArrayVideoSource(VideoSource):
     def batches(self, batch_size: int) -> Iterator[np.ndarray]:
         for i in range(0, len(self._frames), batch_size):
             yield self._frames[i:i + batch_size]
+
+
+class FileVideoSource(VideoSource):
+    """Decode a video file via OpenCV (reference input path,
+    ``marker_detection.py:52``)."""
+
+    def __init__(self, path: str):
+        cv2 = _cv2()
+        if cv2 is None:
+            raise RuntimeError("FileVideoSource requires cv2 (opencv-python)")
+        self._cap = cv2.VideoCapture(path)
+        if not self._cap.isOpened():
+            raise IOError(f"Could not open video: {path}")
+        self._fps = self._cap.get(cv2.CAP_PROP_FPS)
+
+    @property
+    def fps(self) -> float:
+        return self._fps
+
+    def batches(self, batch_size: int) -> Iterator[np.ndarray]:
+        buf = []
+        while True:
+            ok, frame = self._cap.read()
+            if not ok:
+                break
+            buf.append(frame)
+            if len(buf) == batch_size:
+                yield np.stack(buf)
+                buf = []
+        if buf:
+            yield np.stack(buf)
+        self._cap.release()
 
 
 class SyntheticVideoSource(VideoSource):
@@ -100,6 +142,67 @@ def _iter_avi_video_chunks(buf: bytes):
         if cc[2:4] in (b"dc", b"db") and size > 0:
             yield buf[pos + 8:pos + 8 + size]
         pos += 8 + size + (size & 1)
+
+
+class MjpegAviSource(VideoSource):
+    """Parallel host decode of MJPG ``.avi`` files.
+
+    Motion-JPEG frames are independent, so this source demuxes the AVI
+    itself (RIFF chunk walk) and decodes the JPEGs on a thread pool
+    (``cv2.imdecode`` releases the GIL; PIL where cv2 is absent), with a
+    lookahead of two batches, on one thread per host core (at most 32).
+    Frames are BGR uint8 at the recorder's 12 fps.
+    """
+
+    def __init__(self, path: str):
+        with open(path, "rb") as f:
+            self._buf = f.read()
+        first = next(_iter_avi_video_chunks(self._buf), None)
+        if first is None or not first.startswith(b"\xff\xd8"):
+            raise ValueError(f"{path}: not an MJPEG AVI (use FileVideoSource)")
+
+    @property
+    def fps(self) -> float:
+        return 12.0
+
+    def batches(self, batch_size: int) -> Iterator[np.ndarray]:
+        import os
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        from itertools import islice
+
+        cv2 = _cv2()
+        if cv2 is not None:
+            def dec(chunk: bytes) -> np.ndarray:
+                return cv2.imdecode(np.frombuffer(chunk, np.uint8),
+                                    cv2.IMREAD_COLOR)
+        else:
+            def dec(chunk: bytes) -> np.ndarray:
+                from io import BytesIO
+
+                from PIL import Image
+                img = Image.open(BytesIO(chunk))
+                return np.asarray(img.convert("RGB"))[..., ::-1].copy()
+
+        # Lazy submission with a bounded lookahead: Executor.map would
+        # submit every frame up front, so an abandoned generator would keep
+        # decoding frames nobody reads.
+        chunks = iter(_iter_avi_video_chunks(self._buf))
+        buf = []
+        with ThreadPoolExecutor(min(32, os.cpu_count() or 4)) as ex:
+            pending = deque(ex.submit(dec, c)
+                            for c in islice(chunks, 2 * batch_size))
+            while pending:
+                frame = pending.popleft().result()
+                nxt = next(chunks, None)
+                if nxt is not None:
+                    pending.append(ex.submit(dec, nxt))
+                buf.append(frame)
+                if len(buf) == batch_size:
+                    yield np.stack(buf)
+                    buf = []
+        if buf:
+            yield np.stack(buf)
 
 
 _TRANSPORTS = ("tdelta", "split", "packed", "dense")
@@ -249,6 +352,29 @@ class MjpegAviWriter:
     @property
     def frames_written(self) -> int:
         return len(self._sizes)
+
+
+class VideoWriter:
+    """Annotated-video sink: an XVID .avi, as ``marker_detection.py:70-76``
+    writes. Raises where cv2 is absent or cannot open the file (the JAX
+    package's writer does nothing there)."""
+
+    def __init__(self, path: str, fps: float, size_wh: tuple[int, int]):
+        cv2 = _cv2()
+        if cv2 is None:
+            raise RuntimeError("VideoWriter requires cv2 (opencv-python)")
+        self._writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"XVID"),
+                                       fps, size_wh)
+        if not self._writer.isOpened():
+            raise IOError(f"cv2 could not open {path} for XVID writing")
+
+    def write(self, frame: np.ndarray) -> None:
+        if frame.ndim == 2:
+            frame = np.repeat(frame[..., None], 3, axis=-1)
+        self._writer.write(frame.astype(np.uint8))
+
+    def close(self) -> None:
+        self._writer.release()
 
 
 def _host_to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
