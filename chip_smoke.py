@@ -130,6 +130,31 @@ and prints no result line):
      gather, scan; reconstruct: scan; detect: fields, gather). Numbers:
      track --tpu-decode's frames/s beside run's on the same file (two each,
      in turns) and the seconds of writing markers.csv.
+  9. the pose-compensation commands (cli/main.py, in-process, each with
+     its launches counted alone) at 640x480: tilt on a vertical and a
+     POSE_TILT tilted compression (two rendered frames each, as .npy),
+     within POSE_TILT's bound of the angle with 65 common markers (fields,
+     gather, scan); analyze on the TXTs tilt wrote, the same tilt line, no
+     kernel; indent on a POSE_STAIRS staircase with sequential association,
+     65 markers at every step and the worst single-step error beside the
+     reference's 0.04-0.18 mm (fields, gather, scan, associate); a localhost
+     MJPEG server of the ingest's first LIVE[0] JPEGs: record byte-equal to
+     them (no kernel), run-live --tpu-decode --publish 0 --resume at
+     --batch LIVE[1] with each chunk's outputs equal to
+     StreamingPipeline.process over MjpegBatchDecoder's TDELTA frames of
+     the same chunk, its printed lines equal to process()'s, /state read
+     over HTTP after each update equal to that chunk's payload, no frame
+     dropped, and the saved session reloading with the frame count (expand,
+     fields, gather, scan). Then the cost of one request (bench.py:280-333):
+     host uint8 frames -> the card -> process_frames -> the last frame's
+     tilt on the host, at each batch of REQUEST, a distinct window of
+     frames each request, p50/p99 (nearest rank) and the slowest; B = 1
+     through the live transport (JPEG bytes -> entropy_decode_tdelta ->
+     tdelta_to_device -> process_frames -> the tilt); one B = 1 request of
+     each under torch.profiler (kernels on the device, busy share) and its
+     launches. This is not run-live's frame-to-tilt latency, which adds
+     the wait for a chunk's frames and device_feed's lookahead of one
+     chunk.
 The line before the last is the kernels' JSON record (each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
@@ -142,7 +167,9 @@ import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -165,6 +192,17 @@ STREAM = (1024, 64, (-0.18, 0.05, 0.0, 0.0, 0.0))
 INGEST = (2048, 256, 70, 256)
 # The CLI phase's --chunk: the CLI's default (cli/main.py), given explicitly.
 CLI_CHUNK = 256
+# The pose phase: the tilted compression's angle (deg) and depth (mm) of the
+# reference's end-to-end tilt test (tests/test_cli.py:188-216) and the bound
+# it is held to (README.md:217-219); the staircase's steps and depth (mm,
+# README.md:103-121); the live loop's frames and --batch (frames at most the
+# stream reader's max(2 * batch, 8), so none can be dropped); the cost of a
+# request: batch sizes and requests each (bench.py:280-333; 200, so that the
+# nearest-rank p99 is the 198th of 200 and not the slowest).
+POSE_TILT = (15.0, 1.0, 0.5)
+POSE_STAIRS = (12, 0.7)
+LIVE = (64, 32)
+REQUEST = ((1, 8, 32), 200)
 # --only fields: (rows, cols, batches), each batch the first frames of one
 # render, so the 64-frame inputs are the first 64 of the 1024.
 ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
@@ -309,6 +347,16 @@ def _distinct(b: int, h: int, w: int, ys, xs, keep) -> int:
     mask = torch.zeros((b, h * w + 1), dtype=torch.bool, device=keep.device)
     mask.scatter_(1, flat.reshape(b, -1), True)
     return int(mask[:, :h * w].sum())
+
+
+def leaves(x, name):
+    """(name, tensor) of every tensor in nested named tuples."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        yield name, x
+    elif isinstance(x, tuple):
+        for k, v in zip(x._fields, x):
+            yield from leaves(v, f"{name}.{k}")
 
 
 def _build_alt(src: str, entry: str, argtypes=None):
@@ -849,9 +897,11 @@ def main(argv=None) -> None:
                   flush=True)
         return rec, out
 
-    def profile_batch(run, label, batch_s):
+    def profile_batch(run, label, batch_s, host_top=0):
         """Device kernel time of one kernel-path batch by kernel name, and
-        the device's busy share of the unprofiled batch time ``batch_s``."""
+        the device's busy share of the unprofiled batch time ``batch_s``;
+        with ``host_top``, also that many host operators by their own
+        (self) CPU time."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -878,9 +928,21 @@ def main(argv=None) -> None:
               flush=True)
         for t, n, k in rows[:12]:
             print(f"  {t / 1e3:9.3f} ms {n:6d}x  {k[:90]}")
-        return {"kernels": len(spans), "busy_ms": busy / 1e3,
-                "batch_ms": 1e3 * batch_s,
-                "top": [[k, n, t / 1e3] for t, n, k in rows[:40]]}
+        out = {"kernels": len(spans), "busy_ms": busy / 1e3,
+               "batch_ms": 1e3 * batch_s,
+               "top": [[k, n, t / 1e3] for t, n, k in rows[:40]]}
+        if host_top:
+            ops = sorted(((e.self_cpu_time_total, e.count, e.key)
+                          for e in prof.key_averages()), reverse=True)
+            total = sum(t for t, _, _ in ops)
+            print(f"{label}: host operators' own CPU time {total / 1e3:.2f} "
+                  f"ms in {sum(n for _, n, _ in ops)} calls; the top "
+                  f"{host_top}:")
+            for t, n, k in ops[:host_top]:
+                print(f"  {t / 1e3:9.3f} ms {n:6d}x  {k[:90]}")
+            out["host_self_ms"] = total / 1e3
+            out["host_top"] = [[k, n, t / 1e3] for t, n, k in ops[:host_top]]
+        return out
 
     def scan_phase(world, seen, what, launches):
         """The displacement-scan kernel against its plain version on a
@@ -1300,6 +1362,8 @@ def main(argv=None) -> None:
                rec["plain_ms"], rec["bound"], rec["library_ms"])
         return rec
 
+    live_jpegs: list = []          # the ingest's first JPEGs, for phase 9
+
     def ingest_phase():
         """The production MJPEG ingest: host entropy decode, the four device
         transports over the sorted-expand kernel, device_feed and
@@ -1319,6 +1383,7 @@ def main(argv=None) -> None:
         # once, mux its JPEGs n / period times.
         scene, jpegs, rec["encode_ms_per_frame"] = encode_period(period,
                                                                  quality)
+        live_jpegs[:] = jpegs[:max(LIVE[0], REQUEST[1])]
         h, w = 480, 640
         rec["jpeg_bytes_per_frame"] = sum(map(len, jpegs)) / period
         print(f"ingest: encoded {period} {w}x{h} frames at q{quality} with the "
@@ -1454,14 +1519,6 @@ def main(argv=None) -> None:
             if len(outs) != len(pouts) or len(outs) != -(-n // batch):
                 raise AssertionError(f"ingest: {len(outs)} run chunks, "
                                      f"{len(pouts)} process chunks")
-            def leaves(x, name):
-                """(name, tensor) of every tensor in nested named tuples."""
-                if isinstance(x, torch.Tensor):
-                    yield name, x
-                elif isinstance(x, tuple):
-                    for k, v in zip(x._fields, x):
-                        yield from leaves(v, f"{name}.{k}")
-
             for i, (a, b) in enumerate(zip(outs, pouts)):
                 for (name, x), (_, y) in zip(leaves(a, "out"),
                                              leaves(b, "out")):
@@ -1506,13 +1563,33 @@ def main(argv=None) -> None:
                xm["ms"], xm["plain_ms"], xm["bound"], xm["library_ms"])
         return rec, cli
 
+    def run_command(phase, name, argv, expect, launches_of):
+        """``vbs-torch argv`` in-process with the counts set to 0 just before
+        and read just after (into ``launches_of[name]``); raises unless it
+        launched exactly the kernels ``expect``. Returns its stdout, wall
+        seconds and stderr."""
+        from vision_basedsensor_tpu_torch.cli import main as cli
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        launches = launches_of[name] = read_counts()
+        if any((v > 0) != (k in expect) for k, v in launches.items()):
+            raise AssertionError(f"{phase} {name}: expected launches of "
+                                 f"exactly {sorted(expect)}, got {launches}")
+        print(f"{phase}: {name} in {s:.3f} s; launches {launches} [{card}]",
+              flush=True)
+        return out.getvalue(), s, err.getvalue()
+
     def cli_phase(path, workdir):
         """The replay CLI in-process on the ingest's AVI at its default
         --chunk: track --tpu-decode, track on the decoded frames as .npy,
         reconstruct, and detect on one frame, each held to the library
         calls it stands for (byte-equal files) with its launches counted."""
-        import io
-
         from vision_basedsensor_tpu_torch.cli import main as cli
         from vision_basedsensor_tpu_torch.io.table import (read_tracking_csv,
                                                            write_coords_table,
@@ -1528,25 +1605,7 @@ def main(argv=None) -> None:
         rec: dict = {"frames": n, "chunk": chunk, "launches": {}}
 
         def run_cli(name, argv, expect):
-            """``vbs-torch argv`` with the counts set to 0 just before and
-            read just after; its stdout and wall seconds."""
-            out = io.StringIO()
-            torch.cuda.synchronize()
-            reset_counts()
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                cli.main(argv)
-            torch.cuda.synchronize()
-            s = time.perf_counter() - t
-            launches = read_counts()
-            rec["launches"][name] = launches
-            if any((v > 0) != (k in expect) for k, v in launches.items()):
-                raise AssertionError(f"cli {name}: expected launches of "
-                                     f"exactly {sorted(expect)}, got "
-                                     f"{launches}")
-            print(f"cli: {name} in {s:.3f} s; launches {launches} [{card}]",
-                  flush=True)
-            return out.getvalue(), s
+            return run_command("cli", name, argv, expect, rec["launches"])[:2]
 
         def write_tracked(outs, csv_path):
             """markers.csv of pipeline outputs, as cmd_track writes it."""
@@ -1654,6 +1713,299 @@ def main(argv=None) -> None:
               f"(track --tpu-decode, track .npy, reconstruct: byte-equal "
               f"files, {rec['observations']} observations); detect 65 "
               f"markers [{card}]", flush=True)
+        return rec
+
+    def pose_phase(workdir):
+        """The pose-compensation commands in-process at 640x480: tilt on a
+        vertical and a tilted compression, analyze on tilt's TXTs, indent on
+        a staircase, record and run-live --tpu-decode --publish --resume on
+        a localhost MJPEG server of the ingest's JPEGs, each with its
+        launches counted and held to the library calls it stands for; then
+        the cost of one request."""
+        from vision_basedsensor_tpu_torch.config import to_json
+        from vision_basedsensor_tpu_torch.synth import (indentation_staircase,
+                                                        tilt_deviation_field)
+        rec: dict = {"launches": {}}
+
+        def run_pose(name, argv, expect):
+            return run_command("pose", name, argv, expect, rec["launches"])
+
+        def number(text, key):
+            line = next(ln for ln in text.splitlines() if key in ln)
+            return float(line.split(key)[1].split()[0])
+
+        scene = default_scene(480, 640, device=dev)
+
+        def save(name, disp):
+            path = os.path.join(workdir, f"{name}.npy")
+            np.save(path, render_frames(scene, disp).to(torch.uint8).cpu()
+                    .numpy())
+            return path
+
+        # 1. tilt: a vertical and a tilted compression, two frames each.
+        angle, depth, bound = POSE_TILT
+        zero = torch.zeros((65, 3), device=dev)
+        press = zero.clone()
+        press[:, 2] = -depth
+        vert = save("vertical", torch.stack([zero, press]))
+        tilted = save("tilted", torch.stack([zero, tilt_deviation_field(
+            angle, compression_mm=depth, device=dev)]))
+        cfg_path = os.path.join(workdir, "pose_cfg.json")
+        to_json(cfg, cfg_path)
+        exp = os.path.join(workdir, "exp")
+        text, rec["tilt_s"], _ = run_pose(
+            "tilt", ["--config", cfg_path, "tilt", vert, tilted,
+                     "--no-warmup", "--start-range", "0", "0", "--end-range",
+                     "1", "1", "--output-dir", exp],
+            {"fields", "gather", "scan"})
+        rec.update(tilt_deg=number(text, "Tilt Angle = "),
+                   common_markers=int(number(text, "common markers: ")))
+        print(f"pose: tilt of a {angle} deg compression at 640x480: "
+              f"{rec['tilt_deg']:.2f} deg, {rec['common_markers']} common "
+              f"markers [{card}]", flush=True)
+        if abs(rec["tilt_deg"] - angle) >= bound:
+            raise AssertionError(f"pose: tilt {rec['tilt_deg']} not within "
+                                 f"{bound} deg of {angle}")
+        if rec["common_markers"] != 65:
+            raise AssertionError(f"pose: {rec['common_markers']} common "
+                                 "markers, expected 65")
+
+        # 2. analyze on the TXTs tilt wrote: the same tilt, no kernel.
+        text2, _, _ = run_pose(
+            "analyze", ["analyze", os.path.join(exp, "vertical.txt"),
+                        os.path.join(exp, "tilted.txt")], set())
+        tilt_line = lambda t: next(ln for ln in t.splitlines()
+                                   if "Tilt Angle" in ln)
+        if tilt_line(text2) != tilt_line(text):
+            raise AssertionError(f"pose: analyze printed {tilt_line(text2)!r}"
+                                 f", tilt {tilt_line(text)!r}")
+
+        # 3. indent on the staircase, sequential association.
+        steps, step_mm = POSE_STAIRS
+        stairs = save("stairs", indentation_staircase(steps, step_mm,
+                                                      device=dev))
+        text, _, err = run_pose(
+            "indent", ["indent", stairs, "--steps", str(steps), "--step-mm",
+                       str(step_mm), "--association", "sequential"],
+            {"fields", "gather", "scan", "associate"})
+        rows = [ln.split(",") for ln in text.splitlines()[1:]]
+        rec["indent_markers"] = [int(r[5]) for r in rows]
+        rec["indent_worst_step_mm"] = number(err, "worst single-step error: ")
+        rec["indent_cumulative_mm"] = float(rows[-1][3])
+        print(f"pose: indent {steps} x {step_mm} mm at 640x480: worst "
+              f"single-step error {rec['indent_worst_step_mm']:.4f} mm "
+              f"(reference: 0.04-0.18 mm), cumulative at step {steps} "
+              f"{rec['indent_cumulative_mm']:+.4f} mm, markers per step "
+              f"{rec['indent_markers']} [{card}]", flush=True)
+        if len(rows) != steps or set(rec["indent_markers"]) != {65}:
+            raise AssertionError(f"pose: indent rows {rows}: expected "
+                                 f"{steps} steps of 65 markers")
+
+        rec["live"] = live_loop(workdir, run_pose)
+        rec["request"] = request_phase()
+        return rec
+
+    def serve_jpegs(jpegs):
+        """A localhost MJPEG server (multipart/x-mixed-replace with
+        Content-Length) that sends ``jpegs`` once a request; returns the
+        server and its URL."""
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "multipart/x-mixed-replace; boundary=frame")
+                self.end_headers()
+                try:
+                    for jb in jpegs:
+                        self.wfile.write(
+                            b"--frame\r\nContent-Type: image/jpeg\r\n"
+                            + f"Content-Length: {len(jb)}\r\n\r\n".encode()
+                            + jb + b"\r\n")
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv, f"http://127.0.0.1:{srv.server_address[1]}/stream"
+
+    def live_loop(workdir, run_pose):
+        """record and run-live --tpu-decode --publish 0 --resume on the
+        ingest's first JPEGs served on localhost: the recording byte-equal
+        to the served JPEGs; each chunk's outputs equal to
+        StreamingPipeline.process over MjpegBatchDecoder's TDELTA decode of
+        the same chunk; /state, read over HTTP after each update while the
+        session runs, equal to the chunk's payload; the session reloads
+        with the frame count."""
+        import urllib.request
+
+        from vision_basedsensor_tpu_torch.io import publish
+        from vision_basedsensor_tpu_torch.io.session import load_session
+        from vision_basedsensor_tpu_torch.io.video import \
+            _iter_avi_video_chunks
+
+        n, batch = LIVE
+        jpegs = live_jpegs[:n]
+        rec: dict = {"frames": n, "batch": batch}
+        srv, url = serve_jpegs(jpegs)
+        captured, served, payloads = [], [], []
+        process = StreamingPipeline.process
+        update = publish.StatePublisher.update
+
+        def process_spy(self, frames):
+            out = process(self, frames)
+            captured.append(out)
+            return out
+
+        def update_spy(self, state):
+            update(self, state)
+            payloads.append(state)
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/state",
+                                        timeout=30) as r:
+                served.append(json.loads(r.read()))
+
+        try:
+            avi = os.path.join(workdir, "live.avi")
+            run_pose("record", ["record", url, avi, "--max-frames", str(n)],
+                     set())
+            with open(avi, "rb") as f:
+                if list(_iter_avi_video_chunks(f.read())) != jpegs:
+                    raise AssertionError("pose: the recording's payloads "
+                                         "differ from the served JPEGs")
+            sess = os.path.join(workdir, "live_session")
+            StreamingPipeline.process = process_spy
+            publish.StatePublisher.update = update_spy
+            try:
+                text, rec["run_live_s"], _ = run_pose(
+                    "run-live --tpu-decode",
+                    ["run-live", url, "--tpu-decode", "--publish", "0",
+                     "--resume", sess, "--batch", str(batch), "--max-frames",
+                     str(n)], {"expand_sorted", "fields", "gather", "scan"})
+            finally:
+                StreamingPipeline.process = process
+                publish.StatePublisher.update = update
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        if "skipped" in text or len(captured) != -(-n // batch):
+            raise AssertionError(f"pose: run-live ran {len(captured)} chunks "
+                                 f"or dropped frames:\n{text}")
+
+        # The same frames decoded by MjpegBatchDecoder through process().
+        dec = tj.MjpegBatchDecoder(device=dev)
+        sp = StreamingPipeline(default_scene(480, 640, device=dev).cam,
+                               PipelineConfig(), device=dev)
+        lines = []
+        for i, got in enumerate(captured):
+            chunk = jpegs[i * batch:(i + 1) * batch]
+            want = sp.process(dec.tdelta_to_device(
+                dec.entropy_decode_tdelta(chunk)))
+            for (name, x), (_, y) in zip(leaves(got, "out"),
+                                         leaves(want, "out")):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"pose: run-live chunk {i} {name} "
+                                         "differs from process()")
+            seen = want.recon.seen.cpu().numpy()
+            ffn = want.recon.from_first_norm.cpu().numpy()
+            lines.append(f"frames {sp.frames_seen}: tracked "
+                         f"{int(seen[-1].sum())}/65 markers, mean "
+                         f"displacement {float(ffn[seen].mean()):.3f} mm")
+            state = publish.contact_state_payload(want.contact, -1,
+                                                  sp.frames_seen)
+            if served[i] != dict(state, seq=i + 1) or payloads[i] != state:
+                raise AssertionError(f"pose: /state after chunk {i} served "
+                                     f"{served[i]}, expected {state}")
+        printed = [ln for ln in text.splitlines() if ln.startswith("frames ")]
+        if printed != lines:
+            raise AssertionError(f"pose: run-live printed {printed}, "
+                                 f"process() gives {lines}")
+        tracked = torch.cat([o.tracked.valid for o in captured]).sum(-1)
+        loaded = load_session(sess, device=dev)
+        if loaded.frames_seen != n or not torch.equal(loaded.ref.xy,
+                                                      sp.ref.xy):
+            raise AssertionError(f"pose: the saved session has frames_seen "
+                                 f"{loaded.frames_seen} (expected {n}) or "
+                                 "another reference table")
+        rec.update(tracked_min=int(tracked.min()), state=served[-1],
+                   printed=printed + [ln for ln in text.splitlines()
+                                      if "transport" in ln])
+        print(f"pose: record byte-equal ({n} JPEGs); run-live --tpu-decode "
+              f"--publish over {n} frames in chunks of {batch} equal to "
+              f"process() on MjpegBatchDecoder's frames, no drop, tracked "
+              f"per frame min {rec['tracked_min']}; /state served "
+              f"{served[-1]}; the session reloads with frames_seen {n} "
+              f"[{card}]", flush=True)
+        for ln in rec["printed"]:
+            print(f"  run-live: {ln}")
+        return rec
+
+    def request_phase():
+        """The cost of one request (bench.py:280-333): host uint8 frames ->
+        the card -> process_frames -> the last frame's tilt back on the
+        host, a distinct window of rendered frames each request, at each
+        batch of REQUEST; B = 1 through the live transport (JPEG bytes ->
+        entropy_decode_tdelta -> tdelta_to_device -> process_frames -> the
+        tilt); and one B = 1 request of each under torch.profiler."""
+        (batches, iters) = REQUEST
+        scene, frames = render(480, 640, max(batches) + iters - 1)
+        u8 = frames.to(torch.uint8).cpu().numpy()
+        ref = initialize(frames[0], cfg)
+        del frames
+        dec = tj.MjpegBatchDecoder(device=dev)
+        jpegs = live_jpegs[:iters]
+        ref_t = initialize(dec.tdelta_to_device(
+            dec.entropy_decode_tdelta(jpegs[:1]))[0], cfg)
+
+        def request(i, b):
+            x = torch.from_numpy(u8[i:i + b]).to(dev)
+            out = process_frames(x.float(), ref, scene.cam, cfg)
+            return out.contact.tilt_deg[-1].item()
+
+        def request_tdelta(i):
+            x = dec.tdelta_to_device(dec.entropy_decode_tdelta([jpegs[i]]))
+            out = process_frames(x, ref_t, scene.cam, cfg)
+            return out.contact.tilt_deg[-1].item()
+
+        def timed(fn, label):
+            fn(0)                                 # warm-up, not timed
+            times = []
+            for i in range(iters):
+                t = time.perf_counter()
+                tilt = fn(i)
+                times.append(time.perf_counter() - t)
+                if not math.isfinite(tilt):
+                    raise AssertionError(f"request {label}: tilt {tilt}")
+            times.sort()
+
+            def rank(q):                  # nearest rank
+                return 1e3 * times[math.ceil(q * len(times)) - 1]
+
+            p = {"p50_ms": rank(0.5), "p99_ms": rank(0.99),
+                 "max_ms": 1e3 * times[-1], "min_ms": 1e3 * times[0]}
+            print(f"request {label}: p50 {p['p50_ms']:.3f} ms, p99 "
+                  f"{p['p99_ms']:.3f} ms, max {p['max_ms']:.3f} ms, min "
+                  f"{p['min_ms']:.3f} ms over {iters} requests [{card}]",
+                  flush=True)
+            return p
+
+        rec: dict = {}
+        for b in batches:
+            rec[f"b{b}"] = timed(lambda i, b=b: request(i, b),
+                                 f"host uint8 B={b}")
+        rec["b1_tdelta"] = timed(request_tdelta, "TDELTA B=1")
+        for key, fn in (("b1", lambda: request(0, 1)),
+                        ("b1_tdelta", lambda: request_tdelta(0))):
+            reset_counts()
+            fn()
+            rec[key]["launches"] = read_counts()
+            rec[key]["profile"] = profile_batch(
+                fn, f"request {key} (one request)",
+                rec[key]["p50_ms"] / 1e3, host_top=15)
         return rec
 
     def fields_phase():
@@ -2133,6 +2485,9 @@ def main(argv=None) -> None:
 
     records["phases"]["stream"] = stream_phase()
     records["phases"]["ingest"], records["phases"]["cli"] = ingest_phase()
+    import tempfile
+    with tempfile.TemporaryDirectory() as td:
+        records["phases"]["pose"] = pose_phase(td)
     finish()
 
 

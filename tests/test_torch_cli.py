@@ -27,9 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-
-from torch_parity import render_jax, staircase
+from torch_parity import render_jax, run_jax_cli, run_port_cli, staircase
 
 from vision_basedsensor_tpu import config as jcfg
 from vision_basedsensor_tpu.cli import main as jcli
@@ -42,30 +40,6 @@ from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
 H, W, B = 240, 384, 6
 HAS_CV2 = importlib.util.find_spec("cv2") is not None
 HAS_PIL = importlib.util.find_spec("PIL") is not None
-_CACHE_KEYS = ("jax_compilation_cache_dir",
-               "jax_persistent_cache_min_compile_time_secs")
-
-
-def _run_jax(argv, cache_dir):
-    """``vbs argv`` of the JAX package; returns its standard output."""
-    saved = {k: getattr(jax.config, k) for k in _CACHE_KEYS}
-    out = io.StringIO()
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("VBS_COMPILE_CACHE", str(cache_dir))
-            with contextlib.redirect_stdout(out):
-                jcli.main(argv)
-    finally:
-        for k, v in saved.items():
-            jax.config.update(k, v)
-    return out.getvalue()
-
-
-def _run_port(argv):
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        tcli.main(["--device", "cpu", *argv])
-    return out.getvalue()
 
 
 @pytest.fixture(scope="module")
@@ -98,9 +72,9 @@ def _track(inputs, video, *extra):
         argv = ["--config", inputs["cfg"], "track", video, "--output-dir",
                 str(out), *extra]
         if pkg == "jax":
-            _run_jax(argv, inputs["cache"])
+            run_jax_cli(argv, inputs["cache"])
         else:
-            _run_port(argv)
+            run_port_cli(argv)
         paths[pkg] = str(out / "markers.csv")
     return paths
 
@@ -143,8 +117,8 @@ def test_detect_matches_jax(inputs):
         return {(int(r["marker_id"]), int(r["ring"])):
                 np.array([float(r[c]) for c in cols]) for r in rows}
 
-    want = parse(_run_jax(argv, inputs["cache"]))
-    got = parse(_run_port(argv))
+    want = parse(run_jax_cli(argv, inputs["cache"]))
+    got = parse(run_port_cli(argv))
     assert got.keys() == want.keys() and len(got) >= 60
     for key in want:
         np.testing.assert_allclose(got[key], want[key], atol=1e-3,
@@ -241,8 +215,8 @@ def test_reconstruct_matches_jax(inputs, tmp_path, monkeypatch):
         outs[pkg] = tmp_path / f"{pkg}_3d.csv"
         argv = ["reconstruct", csv_path, "--output", str(outs[pkg]),
                 "--no-warmup", "--ring", "2"]
-        text = (_run_jax(argv, inputs["cache"]) if pkg == "jax"
-                else _run_port(argv))
+        text = (run_jax_cli(argv, inputs["cache"]) if pkg == "jax"
+                else run_port_cli(argv))
         ring_line[pkg] = [ln for ln in text.splitlines()
                           if ln.startswith("ring 2 ")]
     key = ("frameno", "marker_id")
@@ -268,8 +242,9 @@ def test_reconstruct_writes_plots(inputs, tmp_path):
     ring2.write_text("\n".join([lines[0]] + [ln for ln in lines[1:]
                                               if ln.split(",")[2] == "2"]))
     plots = tmp_path / "plots"
-    _run_port(["reconstruct", str(ring2), "--output", str(tmp_path / "3d.csv"),
-               "--no-warmup", "--ring", "2", "--plots-dir", str(plots)])
+    run_port_cli(["reconstruct", str(ring2), "--output",
+                  str(tmp_path / "3d.csv"), "--no-warmup", "--ring", "2",
+                  "--plots-dir", str(plots)])
     assert sorted(os.listdir(plots)) == sorted(
         [f"marker_{m}_analysis.png" for m in range(8, 20)]
         + ["ring_2_displacement.png"])
@@ -305,10 +280,10 @@ def test_tpu_decode_raises_where_jax_falls_back(inputs, tmp_path):
     """The JAX CLI falls back to host decode when its device source cannot
     read the input; the port's ``--tpu-decode`` raises instead."""
     argv = ["track", inputs["npy"], "--tpu-decode", "--output-dir"]
-    _run_jax([*argv, str(tmp_path / "jax")], inputs["cache"])
+    run_jax_cli([*argv, str(tmp_path / "jax")], inputs["cache"])
     assert (tmp_path / "jax" / "markers.csv").exists()
     with pytest.raises(ValueError, match="movi"):
-        _run_port([*argv, str(tmp_path / "port")])
+        run_port_cli([*argv, str(tmp_path / "port")])
     assert not (tmp_path / "port").exists()
 
 
@@ -321,7 +296,7 @@ def test_cli_needs_the_card_unless_device_cpu(inputs, tmp_path, monkeypatch):
     assert not (tmp_path / "markers.csv").exists()
 
 
-@pytest.mark.parametrize("cmd", ["calibrate-intrinsics", "run-live", "bench",
+@pytest.mark.parametrize("cmd", ["calibrate-intrinsics", "serve", "bench",
                                  "synth"])
 def test_unported_subcommands_are_refused(cmd, capsys):
     with pytest.raises(SystemExit) as e:

@@ -650,3 +650,73 @@ def test_scan_wrappers_refuse_bad_inputs(cuda):
                                        n=kscan.MAX_SLOTS + 1)
     with pytest.raises(ValueError):
         kscan.associate_sequential(many_ref, many_det, 20.0)
+
+
+@pytest.mark.parametrize("transport", ["tdelta", "split", "packed"])
+def test_mjpeg_cuda_video_source_on_the_card(cuda, transport):
+    """The live stream decoded on the card (``StreamingPipeline.run``'s feed
+    included): within one gray level of ``MjpegBatchDecoder`` on the CPU
+    on the same chunks, K8 launched for every chunk, nothing dropped, and
+    the session's byte accounting summed over the chunks."""
+    from torch_parity import MjpegServer
+
+    from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
+    from vision_basedsensor_tpu_torch.io.mjpeg import MjpegCudaVideoSource
+    from vision_basedsensor_tpu_torch.io.video import device_feed
+    from vision_basedsensor_tpu_torch.ops import jpeg as tj
+    from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
+    from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
+
+    scene = default_scene(480, 640, device=cuda)
+    d = torch.zeros((7, 65, 3), device=cuda)
+    d[:, :, 2] = -0.05 * torch.arange(7, device=cuda)[:, None]
+    frames = render_frames(scene, d).to(torch.uint8).cpu().numpy()
+    jpegs = [encode_jpeg(f, 70) for f in frames]
+    srv = MjpegServer(jpegs)
+    try:
+        src = MjpegCudaVideoSource(srv.url, transport=transport, device=cuda)
+        before = kx.launches
+        got = list(device_feed(src, 3, cuda))
+        torch.cuda.synchronize()
+    finally:
+        srv.close()
+    assert [g.shape for g in got] == [(3, 480, 640), (3, 480, 640),
+                                      (1, 480, 640)]
+    assert all(g.device.type == "cuda" for g in got)
+    assert kx.launches - before >= len(got)
+    cpu = tj.MjpegBatchDecoder(device="cpu")
+    for i, g in enumerate(got):
+        host = getattr(cpu, f"entropy_decode_{transport}")(jpegs[3 * i:3 * i + 3])
+        want = getattr(cpu, f"{transport}_to_device")(host)
+        assert float((g.cpu() - want).abs().max()) <= 1.0, i
+    assert src.last_dropped == 0 and src.last_stats["frames"] == 7
+
+
+def test_contact_state_payload_from_the_card(cuda):
+    """The ``/state`` payload of a contact state on the card equals the one
+    of the same state on the CPU, and is plain JSON."""
+    import json
+
+    from vision_basedsensor_tpu_torch.analysis import contact_state_sequence
+    from vision_basedsensor_tpu_torch.config import (AnalysisConfig,
+                                                     ReconstructConfig)
+    from vision_basedsensor_tpu_torch.io.publish import contact_state_payload
+    from vision_basedsensor_tpu_torch.reconstruct import displacement_scan
+    from vision_basedsensor_tpu_torch.synth import tilt_deviation_field
+
+    world = torch.zeros((3, 65, 3))
+    world[1] = tilt_deviation_field(7.0, compression_mm=0.3, device="cpu")
+    world[2] = tilt_deviation_field(15.0, compression_mm=0.0, device="cpu")
+    seen = torch.ones((3, 65), dtype=torch.bool)
+    seen[1, ::7] = False
+    rcfg, acfg = ReconstructConfig(warmup_frames=0), AnalysisConfig()
+    states = {dev: contact_state_sequence(displacement_scan(
+        world.to(dev), seen.to(dev), rcfg), acfg) for dev in ("cpu", cuda)}
+    for i in (1, -1):
+        got = contact_state_payload(states[cuda], i, 3)
+        want = contact_state_payload(states["cpu"], i, 3)
+        assert json.loads(json.dumps(got)) == got
+        assert got.keys() == want.keys() and got["valid"] == want["valid"]
+        for k in ("tilt_deg", "plane", "mean_vector_mm", "mean_magnitude_mm"):
+            np.testing.assert_allclose(got[k], want[k], atol=1e-4, err_msg=k)
+    assert abs(got["tilt_deg"] - 15.0) < 1e-2 and got["valid"] is True

@@ -47,6 +47,9 @@ def test_port_imports_without_jax():
     for mod in ("native", "io.video", "io.mjpeg", "io.jpeg_encode", "ops.jpeg",
                 "ops.expand", "ops.cuda.expand"):
         assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
+    # So do the live path's publisher and logger.
+    for mod in ("io.publish", "utils", "utils.log"):
+        assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
     assert bad == "[]"
 
 

@@ -2,8 +2,12 @@
 
 Port of ``vision_basedsensor_tpu/analysis/force.py``: ``contact_state_sequence``
 (C14/C15 in the hot path), a batched masked plane fit over each frame's
-from-first-sighting displacement field, and ``start_end_displacement``
-(C17), the frame-range-averaged start/end displacement.
+from-first-sighting displacement field; ``start_end_displacement`` (C17),
+the frame-range-averaged start/end displacement; and the offline pair
+analysis, ``deviation_field`` (``d_tilt - d_vert`` over the common markers,
+``ForceDistribution.py:168-208``) and ``analyze_deviation`` (the contact
+plane over the deviated end points and its tilt ``atan(sqrt(a^2+b^2))``,
+``ForceDistribution.py:138-162``).
 """
 from __future__ import annotations
 
@@ -18,6 +22,15 @@ from vision_basedsensor_tpu_torch.core.fit import (PlaneFit, fit_plane,
 from vision_basedsensor_tpu_torch.reconstruct.displacement import Reconstruction
 
 
+class DeviationAnalysis(NamedTuple):
+    deviation: torch.Tensor       # (65, 3) d_tilt - d_vert
+    valid: torch.Tensor           # (65,)
+    plane: PlaneFit               # contact plane over deviated end points
+    tilt_deg: torch.Tensor        # scalar pose-misalignment angle
+    mean_vector: torch.Tensor     # (3,) mean deviation vector
+    mean_magnitude: torch.Tensor  # scalar mean |deviation|
+
+
 class ContactState(NamedTuple):
     """Per-frame contact state — the production-serving pose output."""
     tilt_deg: torch.Tensor        # (B,) contact-plane tilt per frame
@@ -27,13 +40,20 @@ class ContactState(NamedTuple):
     valid: torch.Tensor           # (B,) enough markers to fit a plane
 
 
+def _start_points(like: torch.Tensor, initial_mode: str) -> torch.Tensor:
+    """The 65 markers' start points ``(65, 3)``: the dome layout's X, Y and,
+    for ``initial_mode='shell'``, its heights, else Z = 0 (the reference's
+    default, ``ForceDistribution.py:15,222``)."""
+    table = torch.as_tensor(layout.dome_layout()[:, 1:], dtype=like.dtype,
+                            device=like.device)
+    z0 = table[:, 2] if initial_mode == "shell" else torch.zeros_like(table[:, 2])
+    return torch.stack([table[:, 0], table[:, 1], z0], dim=-1)
+
+
 def contact_state_sequence(recon: Reconstruction, cfg: AnalysisConfig,
                            initial_mode: str = "plane") -> ContactState:
     """Contact-plane fit over each frame's cumulative displacement field."""
-    table = torch.as_tensor(layout.dome_layout()[:, 1:],
-                            dtype=recon.world.dtype, device=recon.world.device)
-    z0 = table[:, 2] if initial_mode == "shell" else torch.zeros_like(table[:, 2])
-    start = torch.stack([table[:, 0], table[:, 1], z0], dim=-1)   # (65, 3)
+    start = _start_points(recon.world, initial_mode)              # (65, 3)
     disp = cfg.deviation_scale * recon.from_first                 # (B, 65, 3)
     end = start[None] + disp
     valid = recon.seen
@@ -66,3 +86,30 @@ def start_end_displacement(recon: Reconstruction,
     end, e_ok = avg(end_range)
     ok = s_ok & e_ok
     return torch.where(ok[:, None], end - start, torch.zeros_like(end)), ok
+
+
+def deviation_field(d_vert: torch.Tensor, vert_ok: torch.Tensor,
+                    d_tilt: torch.Tensor, tilt_ok: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-marker deviation ``d_tilt - d_vert`` over the common-id set
+    (``ForceDistribution.py:184,197-204``)."""
+    ok = vert_ok & tilt_ok
+    return torch.where(ok[:, None], d_tilt - d_vert,
+                       torch.zeros_like(d_tilt)), ok
+
+
+def analyze_deviation(deviation: torch.Tensor, valid: torch.Tensor,
+                      cfg: AnalysisConfig,
+                      initial_mode: str = "plane") -> DeviationAnalysis:
+    """Contact-plane fit and summary over a deviation field: the plane is
+    fitted to start + scaled deviation end points
+    (``ForceDistribution.py:229-243``), the tilt is in degrees."""
+    end = _start_points(deviation, initial_mode) + cfg.deviation_scale * deviation
+    plane = (fit_plane_robust(end, valid) if cfg.robust_plane_fit
+             else fit_plane(end, valid))
+    mean_vec = masked_mean(cfg.deviation_scale * deviation, valid[:, None],
+                           axis=0)
+    mean_mag = masked_mean(torch.linalg.norm(deviation, dim=-1), valid)
+    return DeviationAnalysis(
+        deviation=deviation, valid=valid, plane=plane,
+        tilt_deg=plane.tilt_deg, mean_vector=mean_vec, mean_magnitude=mean_mag)

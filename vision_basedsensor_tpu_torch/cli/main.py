@@ -1,24 +1,30 @@
-"""The replay command line of the PyTorch port.
+"""The command line of the PyTorch port (``vbs-torch``).
 
-Port of ``vision_basedsensor_tpu/cli/main.py`` for the three subcommands of
-the offline replay: the operator records the sensor's MJPEG stream to
-``.avi``, then replays it.
+Port of ``vision_basedsensor_tpu/cli/main.py`` for the offline replay and
+the pose-compensation loop:
 
   detect       single image -> marker centroids + ids
   track        video -> tracking CSV (+ annotated video)
   reconstruct  tracking CSV + calibration -> 3D coordinates
+  analyze      vertical + tilted experiment TXTs -> deviation + tilt
+  tilt         vertical + tilted compression videos -> pose tilt
+  indent       staircase (probe indentation) evaluation on a video
+  record       MJPEG stream -> .avi, the JPEG payloads muxed verbatim
+  run-live     live MJPEG stream -> pipeline (+ --publish, --resume)
 
 The arguments are the reference's, spelled the same, so a user's scripts run
 unchanged. One option is new: ``--device {cuda,cpu}`` (before the
 subcommand, default ``cuda``), passed to every constructor; without a card
-and without ``--device cpu`` the command raises (``core/device.py``). The
-other subcommands of the reference (calibration, analysis, capture, live
-streams, ``bench``) are not registered here, so argparse refuses them.
+and without ``--device cpu`` every command raises (``core/device.py``). The
+reference's other subcommands (calibration, ``synth``, ``serve``,
+``diameter``, ``bench``) are not registered here, so argparse refuses them.
 
-``track --tpu-decode`` reads the video with ``MjpegAviCudaSource`` (host
+``track --tpu-decode`` reads the video with ``MjpegAviCudaSource`` and
+``run-live --tpu-decode`` the stream with ``MjpegCudaVideoSource`` (host
 entropy decode, dequant-IDCT on the device) fed by ``device_feed``. Unlike
 the reference, which falls back to host decode when that source cannot be
-built, it raises: a user who asks for the device decode gets it or an error.
+built, both raise: a user who asks for the device decode gets it or an
+error.
 """
 from __future__ import annotations
 
@@ -50,8 +56,10 @@ def _make_source(path: str):
 
 
 def _host(outputs):
-    """A named tuple of tensors as numpy arrays: one copy per field."""
-    return type(outputs)(*(x.cpu().numpy() for x in outputs))
+    """A named tuple of tensors (nested ones too) as numpy arrays: one copy
+    per field."""
+    return type(outputs)(*(_host(x) if isinstance(x, tuple)
+                           else x.cpu().numpy() for x in outputs))
 
 
 def _stream_video(path, args, cfg, apply_warmup: bool, chunk: int):
@@ -254,12 +262,275 @@ def cmd_reconstruct(args):
         print(f"wrote {out}")
 
 
+def cmd_analyze(args):
+    import torch
+
+    from vision_basedsensor_tpu_torch.analysis import (analyze_deviation,
+                                                       deviation_field)
+    from vision_basedsensor_tpu_torch.io.table import read_experiment_txt
+    cfg = _load_cfg(args)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=args.device)
+    ok = lambda x: torch.as_tensor(x, device=args.device)
+    d_vert, ok_v = read_experiment_txt(args.vertical)
+    d_tilt, ok_t = read_experiment_txt(args.tilted)
+    dev, valid = deviation_field(f32(d_vert), ok(ok_v), f32(d_tilt), ok(ok_t))
+    res = analyze_deviation(dev, valid, cfg.analysis, initial_mode=args.mode)
+    _print_tilt(res)
+    if args.plot:
+        _plot_deviation(res, args, cfg)
+
+
+def _print_tilt(res):
+    tilt, mag = res.tilt_deg.item(), res.mean_magnitude.item()
+    print(f"-> Plane Fit: Tilt Angle = {tilt:.2f} degrees")
+    print(f"-> Mean deviation magnitude: {mag:.4f} mm")
+
+
+def _plot_deviation(res, args, cfg):
+    from vision_basedsensor_tpu_torch.analysis.plots import plot_deviation_field
+    plot_deviation_field(_host(res), args.plot, initial_mode=args.mode,
+                         scale=cfg.analysis.deviation_scale)
+    print(f"wrote {args.plot}")
+
+
+def cmd_tilt(args):
+    """Vertical and tilted compression videos -> the contact-plane tilt.
+
+    Runs the full pipeline on both videos, averages positions over the
+    configured start/end frame ranges (LocalAnalysis semantics), writes the
+    reference-format experiment TXTs, computes the deviation field and the
+    contact-plane tilt angle.
+    """
+    import torch
+
+    from vision_basedsensor_tpu_torch import layout
+    from vision_basedsensor_tpu_torch.analysis import (analyze_deviation,
+                                                       deviation_field,
+                                                       start_end_displacement)
+    from vision_basedsensor_tpu_torch.io.table import write_experiment_txt
+    cfg = _load_cfg(args)
+
+    def process(path, tag):
+        _, recon, _, _ = _stream_video(path, args, cfg,
+                                       apply_warmup=not args.no_warmup,
+                                       chunk=args.chunk)
+        recon = type(recon)(*(torch.as_tensor(v, device=args.device)
+                              for v in recon))
+        rng_start = tuple(args.start_range or cfg.analysis.start_frame_range)
+        rng_end = tuple(args.end_range or cfg.analysis.end_frame_range)
+        d, ok = start_end_displacement(recon, rng_start, rng_end)
+        if args.output_dir:
+            os.makedirs(args.output_dir, exist_ok=True)
+            table = layout.dome_layout()[:, 1:]
+            write_experiment_txt(os.path.join(args.output_dir, f"{tag}.txt"),
+                                 table, table + d.cpu().numpy(),
+                                 ok.cpu().numpy())
+        return d, ok
+
+    d_vert, ok_v = process(args.vertical_video, "vertical")
+    d_tilt, ok_t = process(args.tilted_video, "tilted")
+    dev, ok = deviation_field(d_vert, ok_v, d_tilt, ok_t)
+    res = analyze_deviation(dev, ok, cfg.analysis, initial_mode=args.mode)
+    print(f"common markers: {int(ok.sum())}")
+    _print_tilt(res)
+    if args.plot:
+        _plot_deviation(res, args, cfg)
+
+
+def cmd_indent(args):
+    """Staircase (probe-indentation) evaluation on a video.
+
+    A probe indents the bonnet in ``--steps`` prescribed ``--step-mm``
+    increments (README.md:103-121); the command runs the full pipeline and
+    reports the measured mean marker displacement at each step against the
+    prescribed depth: cumulative and single-step errors (the reference
+    reports 0.04-0.18 mm single-step).
+    """
+    import dataclasses
+    cfg = _load_cfg(args)
+    # Short staircase videos have no 100-frame warm-up to skip, and the
+    # rest-to-full-depth drift exceeds the frame-0 association gate;
+    # sequential association follows it.
+    cfg = dataclasses.replace(
+        cfg, track=dataclasses.replace(cfg.track,
+                                       association_mode=args.association))
+    _, recon, _, _ = _stream_video(args.video, args, cfg,
+                                   apply_warmup=False, chunk=args.chunk)
+    ffn, seen = recon.from_first_norm, recon.seen
+    n_frames = ffn.shape[0]
+    fps_step = args.frames_per_step
+    steps = min(args.steps, (n_frames - 1) // fps_step)
+    if steps < args.steps:
+        print(f"# only {n_frames} frames: evaluating {steps} steps",
+              file=sys.stderr)
+    if steps < 1:
+        print(f"error: {n_frames} frame(s) is fewer than one full step "
+              f"({fps_step + 1} frames needed at --frames-per-step "
+              f"{fps_step}); nothing to evaluate", file=sys.stderr)
+        sys.exit(2)
+    rows = []
+    prev = 0.0
+    for k in range(1, steps + 1):
+        t = k * fps_step  # last frame of step k (settled)
+        m = seen[t]
+        measured = float(ffn[t][m].mean()) if m.any() else float("nan")
+        rows.append((k, k * args.step_mm, measured, measured - k * args.step_mm,
+                     measured - prev - args.step_mm, int(m.sum())))
+        prev = measured
+    header = ("step,prescribed_mm,measured_mm,cumulative_error_mm,"
+              "step_error_mm,markers")
+    print(header)
+    for r in rows:
+        print(f"{r[0]},{r[1]:.3f},{r[2]:.4f},{r[3]:+.4f},{r[4]:+.4f},{r[5]}")
+    errs = np.array([abs(r[4]) for r in rows])
+    print(f"# worst single-step error: {errs.max():.4f} mm "
+          f"(reference: 0.04-0.18 mm)", file=sys.stderr)
+    print(f"# cumulative error at step {steps}: {rows[-1][3]:+.4f} mm",
+          file=sys.stderr)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(header + "\n")
+            for r in rows:
+                f.write(f"{r[0]},{r[1]:.3f},{r[2]:.4f},{r[3]:.4f},"
+                        f"{r[4]:.4f},{r[5]}\n")
+        print(f"wrote {args.output}", file=sys.stderr)
+    if args.plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(12, 5))
+        ks = [r[0] for r in rows]
+        ax1.bar(ks, [r[2] for r in rows], color="skyblue",
+                edgecolor="black", label="Measured")
+        ax1.plot(ks, [r[1] for r in rows], "r--", label="Prescribed")
+        ax1.set(title="Cumulative Displacement", xlabel="Step",
+                ylabel="Displacement (mm)")
+        ax1.legend()
+        ax2.plot(ks, [abs(r[4]) for r in rows], "o-", color="crimson")
+        ax2.set(title="Single-step Absolute Error", xlabel="Step",
+                ylabel="Error (mm)")
+        fig.tight_layout()
+        fig.savefig(args.plot, dpi=150)
+        plt.close(fig)
+        print(f"wrote {args.plot}", file=sys.stderr)
+    return 0
+
+
+def cmd_record(args):
+    """Record an MJPEG stream to a playable ``.avi`` without transcoding:
+    the received JPEG payloads are muxed verbatim
+    (``io/video.py:MjpegAviWriter``), so recording costs no decode and
+    loses no quality. Ctrl-C finalizes the file cleanly."""
+    from vision_basedsensor_tpu_torch.io.mjpeg import iter_mjpeg_bytes, sof_dims
+    from vision_basedsensor_tpu_torch.io.video import MjpegAviWriter
+    w = None
+    try:
+        for jb in iter_mjpeg_bytes(args.url, max_frames=args.max_frames):
+            if w is None:
+                dims = sof_dims(jb)
+                if dims is None:
+                    raise ValueError("no SOF marker found")
+                w = MjpegAviWriter(args.output, args.fps, dims)
+                print(f"recording {dims[0]}x{dims[1]} @ {args.fps} fps -> "
+                      f"{args.output}", flush=True)
+            w.write_jpeg(jb)
+            if w.frames_written % 100 == 0:
+                print(f"recorded {w.frames_written} frames", flush=True)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if w is not None:
+            w.close()
+            print(f"wrote {args.output} ({w.frames_written} frames)")
+    if w is None:
+        print("no frames received", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_run_live(args):
+    """Consume a live MJPEG stream through the pipeline, printing each
+    chunk's tracking and, with ``--publish``, serving the last frame's
+    contact state. ``--tpu-decode`` decodes on the device
+    (``MjpegCudaVideoSource``) and raises where it cannot be built; the
+    session (``--resume``) is saved on every exit path, Ctrl-C included."""
+    from vision_basedsensor_tpu_torch.io.mjpeg import (MjpegCudaVideoSource,
+                                                       MjpegVideoSource)
+    from vision_basedsensor_tpu_torch.io.session import (load_session,
+                                                         save_session)
+    from vision_basedsensor_tpu_torch.pipeline import StreamingPipeline
+    cfg = _load_cfg(args)
+    calibration = _load_artifact(args)
+    if calibration is not None:
+        cam = calibration.to_camera(device=args.device)
+    else:
+        cam = _camera_from_args(args, (0, cfg.capture.height,
+                                       cfg.capture.width))
+    ref = carry = assoc_xy = None
+    fseen = 0
+    if args.resume and os.path.exists(args.resume):
+        sess = load_session(args.resume, device=args.device)
+        ref, cfg, assoc_xy = sess.ref, sess.config, sess.assoc_xy
+        carry = sess.scan_carry or None
+        fseen = sess.frames_seen
+        if sess.calibration is not None:
+            calibration = sess.calibration
+            cam = sess.calibration.to_camera(device=args.device)
+        print(f"resumed session from {args.resume}")
+    sp = StreamingPipeline(cam, cfg, ref=ref, carry=carry, assoc_xy=assoc_xy,
+                           frames_seen=fseen, device=args.device)
+    if args.tpu_decode:
+        src = MjpegCudaVideoSource(args.url, max_frames=args.max_frames,
+                                   device=args.device)
+    else:
+        src = MjpegVideoSource(args.url, max_frames=args.max_frames)
+    pub = None
+    if args.publish is not None:
+        from vision_basedsensor_tpu_torch.io.publish import (
+            StatePublisher, contact_state_payload)
+        pub = StatePublisher(port=args.publish, host=args.publish_host)
+        print(f"contact state served on {args.publish_host}:{pub.port} "
+              "(/state, /events, /healthz)", flush=True)
+    try:
+        for out in sp.run(src, batch_size=args.batch):
+            seen = out.recon.seen.cpu().numpy()
+            ffn = out.recon.from_first_norm.cpu().numpy()
+            mean_disp = float(ffn[seen].mean()) if seen.any() else 0.0
+            print(f"frames {sp.frames_seen}: tracked "
+                  f"{int(seen[-1].sum())}/65 markers, "
+                  f"mean displacement {mean_disp:.3f} mm", flush=True)
+            if pub is not None and out.contact is not None:
+                pub.update(contact_state_payload(out.contact, -1,
+                                                 sp.frames_seen))
+    finally:
+        # Ctrl-C is the normal end of a live session: the checkpoint (with
+        # the calibration, so a resume keeps the camera) is written on
+        # every exit path.
+        if pub is not None:
+            pub.close()
+        if src.last_dropped:
+            print(f"note: {src.last_dropped} stream frame(s) skipped to "
+                  "stay current (pipeline slower than stream)", flush=True)
+        st = getattr(src, "last_stats", None)
+        if st and st.get("transport") in ("tdelta", "split", "packed"):
+            per = st["bytes_shipped"] / max(1, st["frames"])
+            dense = st["bytes_dense"] / max(1, st["frames"])
+            print(f"tpu-decode transport: {per / 1024:.1f} KB/frame over "
+                  f"the link ({dense / 1024:.0f} KB dense equivalent)",
+                  flush=True)
+        if args.resume and sp.ref is not None:
+            save_session(args.resume, sp.ref, cfg, calibration=calibration,
+                         scan_carry=sp.carry, assoc_xy=sp.assoc_xy,
+                         frames_seen=sp.frames_seen)
+            print(f"session saved to {args.resume}")
+
+
 def main(argv=None):
     from vision_basedsensor_tpu_torch.core.device import resolve
 
     p = argparse.ArgumentParser(
         prog="vbs-torch",
-        description="vision-based tactile sensor replay on the GPU")
+        description="vision-based tactile sensor on the GPU")
     p.add_argument("--config", help="PipelineConfig JSON file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where every tensor is built (default: the card)")
@@ -308,6 +579,79 @@ def main(argv=None):
                         "(default 120-150, reference LocalAnalysis.py:15, "
                         "clipped to the video)")
     r.set_defaults(fn=cmd_reconstruct)
+
+    a = sub.add_parser("analyze")
+    a.add_argument("vertical", help="vertical-compression experiment TXT")
+    a.add_argument("tilted", help="tilted-compression experiment TXT")
+    a.add_argument("--mode", default="plane", choices=["plane", "shell"])
+    a.add_argument("--plot")
+    a.set_defaults(fn=cmd_analyze)
+
+    ti = sub.add_parser("tilt", help="vertical+tilted videos -> pose tilt")
+    ti.add_argument("vertical_video")
+    ti.add_argument("tilted_video")
+    ti.add_argument("--mode", default="plane", choices=["plane", "shell"])
+    ti.add_argument("--output-dir", help="write reference-format TXT exports")
+    ti.add_argument("--start-range", type=int, nargs=2)
+    ti.add_argument("--end-range", type=int, nargs=2)
+    ti.add_argument("--no-warmup", action="store_true")
+    ti.add_argument("--chunk", type=int, default=256,
+                    help="streaming chunk size (bounds host RAM)")
+    ti.add_argument("--calibration")
+    ti.add_argument("--extrinsics")
+    ti.add_argument("--plot")
+    ti.set_defaults(fn=cmd_tilt)
+
+    ind = sub.add_parser("indent",
+                         help="staircase (probe indentation) evaluation on "
+                              "a video (README.md:103-121)")
+    ind.add_argument("video")
+    ind.add_argument("--steps", type=int, default=12)
+    ind.add_argument("--step-mm", type=float, default=0.7)
+    ind.add_argument("--frames-per-step", type=int, default=1,
+                     help="frames recorded at each indentation depth "
+                          "(the last frame of each step is evaluated)")
+    ind.add_argument("--association", default="sequential",
+                     choices=["sequential", "frame0"])
+    ind.add_argument("--chunk", type=int, default=256)
+    ind.add_argument("--output", help="write the per-step table as CSV")
+    ind.add_argument("--plot", help="write the error-analysis figure "
+                                    "(img/Sensor_Error_Analysis.png analog)")
+    ind.add_argument("--calibration")
+    ind.add_argument("--extrinsics")
+    ind.set_defaults(fn=cmd_indent)
+
+    rec = sub.add_parser("record",
+                         help="record an MJPEG stream to .avi without "
+                              "transcoding (collecting.py:177-191)")
+    rec.add_argument("url")
+    rec.add_argument("output")
+    rec.add_argument("--fps", type=float, default=12.0)
+    rec.add_argument("--max-frames", type=int)
+    rec.set_defaults(fn=cmd_record)
+
+    rl = sub.add_parser("run-live", help="process a live MJPEG stream")
+    rl.add_argument("url")
+    rl.add_argument("--batch", type=int, default=32)
+    rl.add_argument("--max-frames", type=int)
+    rl.add_argument("--calibration")
+    rl.add_argument("--extrinsics")
+    rl.add_argument("--resume", help="session checkpoint directory")
+    rl.add_argument("--publish", type=int, metavar="PORT",
+                    help="serve the latest contact state as JSON on this "
+                         "port (/state, /events; 0 = ephemeral) for the "
+                         "robot-side pose compensation (README.md:124)")
+    rl.add_argument("--publish-host", default="127.0.0.1",
+                    help="bind address for --publish (default loopback; "
+                         "the endpoint has no auth — use 0.0.0.0 only on "
+                         "an isolated robot LAN)")
+    rl.add_argument("--tpu-decode", action="store_true",
+                    help="decode the stream's JPEGs on the device: native "
+                         "entropy decode on the host, dequantization and "
+                         "IDCT on the device via the temporal-delta sparse "
+                         "transport; raises where that decoder cannot be "
+                         "built (no fallback to host decode)")
+    rl.set_defaults(fn=cmd_run_live)
 
     args = p.parse_args(argv)
     args.device = resolve(args.device)

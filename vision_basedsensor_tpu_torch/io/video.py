@@ -11,6 +11,7 @@ when they are built, so the module imports without it.
 """
 from __future__ import annotations
 
+import functools
 import struct
 import threading
 from typing import Iterator
@@ -21,6 +22,7 @@ import torch
 from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
 
 
+@functools.cache
 def _cv2():
     """cv2, or None where opencv-python is not installed."""
     try:
@@ -28,6 +30,19 @@ def _cv2():
     except ImportError:
         return None
     return cv2
+
+
+def decode_jpeg(buf: bytes) -> np.ndarray:
+    """One JPEG as a BGR uint8 image: cv2 where installed, else PIL. PIL's
+    image is converted to RGB first, so a gray JPEG also gives three
+    channels (the JAX package's fallback reverses a gray frame's columns)."""
+    cv2 = _cv2()
+    if cv2 is not None:
+        return cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+    from io import BytesIO
+
+    from PIL import Image
+    return np.asarray(Image.open(BytesIO(buf)).convert("RGB"))[..., ::-1].copy()
 
 
 class VideoSource:
@@ -171,32 +186,19 @@ class MjpegAviSource(VideoSource):
         from concurrent.futures import ThreadPoolExecutor
         from itertools import islice
 
-        cv2 = _cv2()
-        if cv2 is not None:
-            def dec(chunk: bytes) -> np.ndarray:
-                return cv2.imdecode(np.frombuffer(chunk, np.uint8),
-                                    cv2.IMREAD_COLOR)
-        else:
-            def dec(chunk: bytes) -> np.ndarray:
-                from io import BytesIO
-
-                from PIL import Image
-                img = Image.open(BytesIO(chunk))
-                return np.asarray(img.convert("RGB"))[..., ::-1].copy()
-
         # Lazy submission with a bounded lookahead: Executor.map would
         # submit every frame up front, so an abandoned generator would keep
         # decoding frames nobody reads.
         chunks = iter(_iter_avi_video_chunks(self._buf))
         buf = []
         with ThreadPoolExecutor(min(32, os.cpu_count() or 4)) as ex:
-            pending = deque(ex.submit(dec, c)
+            pending = deque(ex.submit(decode_jpeg, c)
                             for c in islice(chunks, 2 * batch_size))
             while pending:
                 frame = pending.popleft().result()
                 nxt = next(chunks, None)
                 if nxt is not None:
-                    pending.append(ex.submit(dec, nxt))
+                    pending.append(ex.submit(decode_jpeg, nxt))
                 buf.append(frame)
                 if len(buf) == batch_size:
                     yield np.stack(buf)

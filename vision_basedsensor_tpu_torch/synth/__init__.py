@@ -1,4 +1,7 @@
 from vision_basedsensor_tpu_torch.synth.render import (DomeScene, default_scene,
-                                                       render_frames)
+                                                       indentation_staircase,
+                                                       render_frames,
+                                                       tilt_deviation_field)
 
-__all__ = ["DomeScene", "default_scene", "render_frames"]
+__all__ = ["DomeScene", "default_scene", "indentation_staircase",
+           "render_frames", "tilt_deviation_field"]

@@ -1,7 +1,8 @@
 """Synthetic dome renderer.
 
 Port of ``vision_basedsensor_tpu/synth/render.py`` (``default_scene``,
-``render_frames``): the 65-marker dome is projected through the pinhole +
+``render_frames``, and the displacement sequences ``indentation_staircase``
+and ``tilt_deviation_field``): the 65-marker dome is projected through the pinhole +
 distortion camera, each marker ball becomes an image-plane ellipse from the
 projection Jacobian (analytic here, ``jacfwd`` there) and is rasterized
 with ~1 px anti-aliased edges. The machine that runs the port may have no
@@ -97,3 +98,36 @@ def render_frames(scene: DomeScene, displacements: torch.Tensor,
         img = scene.background + cover * (scene.marker_level - scene.background)
         out.append(torch.clamp(torch.floor(img + 0.5), 0.0, 255.0))
     return torch.cat(out)
+
+
+def indentation_staircase(num_steps: int = 12, step_mm: float = 0.7,
+                          frames_per_step: int = 1,
+                          device=CUDA) -> torch.Tensor:
+    """World displacements of the probe-indentation experiment
+    (README.md:103-121): every marker translates by ``k * step_mm`` along -Z
+    at step k. Returns ``(num_steps * frames_per_step + 1, 65, 3)``, the rest
+    frame included, on ``device`` (the card by default)."""
+    device = resolve(device)
+    steps = torch.arange(num_steps + 1, dtype=torch.float32) * step_mm
+    reps = torch.full((num_steps + 1,), frames_per_step)
+    reps[0] = 1
+    steps = torch.repeat_interleave(steps, reps)
+    d = torch.zeros((steps.shape[0], layout.NUM_MARKERS, 3))
+    d[:, :, 2] = -steps[:, None]
+    return d.to(device)
+
+
+def tilt_deviation_field(tilt_deg: float, axis: str = "y",
+                         compression_mm: float = 1.0,
+                         device=CUDA) -> torch.Tensor:
+    """Displacement field ``(65, 3)`` of a tilted compression: each marker
+    moves along -Z by ``compression + tan(tilt) * coordinate``, so the
+    deviation field's fitted contact plane has exactly ``tilt_deg`` tilt
+    (``ForceDistribution.py:138-162``). On ``device`` (the card by
+    default)."""
+    device = resolve(device)
+    table = layout.dome_layout()
+    coord = table[:, 1] if axis == "y" else table[:, 2]
+    d = np.zeros((layout.NUM_MARKERS, 3), np.float32)
+    d[:, 2] = -(compression_mm + np.tan(np.deg2rad(tilt_deg)) * coord)
+    return torch.from_numpy(d).to(device)
