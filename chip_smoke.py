@@ -90,7 +90,16 @@ and prints no result line):
      frames with a carry; timed beside its bound, with its dependency-chain
      floor printed as text (steps x dependent instructions a step, counted
      from the source, x DEP_CYCLES at the card's top SM clock; the
-     association kernel's too, in phase 6);
+     association kernel's too, in phase 6). Its frames then run again with
+     DetectConfig(fast_filters=True) (the DoG and NCC filter GEMMs in
+     bfloat16 with float32 accumulation): exactly the fused branch's
+     kernels, 65/65 markers in every frame, the drift's direction, each
+     float32 detection's nearest bf16 detection (largest and 99th
+     percentile printed; the rest frame within the reference's 0.01 px),
+     the DoG mask pixels that differ from the float32 mask, the H pass
+     rounded to bfloat16 and the W pass's float32 output; fps both ways in
+     turns (median of four), the filter stage's device time both ways and,
+     under --profile, its GEMMs' device time;
   5. the packed-field window sums (the reference's window_sums_packed and
      fused gather_moments) on the 640x480 B=1024 run's packed field and
      peaks: against the plain version, and timed against the split path the
@@ -155,6 +164,25 @@ and prints no result line):
      launches. This is not run-live's frame-to-tilt latency, which adds
      the wait for a chunk's frames and device_feed's lookahead of one
      chunk.
+ 10. "calibrate" (cli/main.py in-process, each command's launches counted
+     alone): synth --motion staircase and --motion wave --frames 60 at
+     640x480, each .npy byte-equal to render_frames of the same
+     displacements (no kernel); membrane_indentation_field(1.5) at 640x480
+     through run_video (fields, gather, scan), held to
+     tests/test_reconstruct.py:97-131's bounds; calibrate-intrinsics on
+     CAL_VIEWS rendered 640x480 boards (6x6 inner corners, 3 mm) through
+     CAL_K: used every image, K within 6 px, RMS < 0.3 px, the XLSX
+     byte-equal to calibrate_from_images + save_intrinsics_xlsx under a
+     fixed zip clock; calibrate-extrinsics on those intrinsics with the 65
+     markers projected through PNP_POSE, 0.3 px noise and 7 outliers: the
+     XLSX pose equal to solve_pnp_ransac's, the outliers rejected, rotation
+     within 0.1 deg, T within 0.1 mm; diameter on a 1080x1920 photo of the
+     board beside 65 2.0 mm disks at DIAMETER_PX_PER_MM: the scale within
+     1%, the printed rows equal to measure_diameters, at least 10 valid
+     markers, each a rendered disk (centre within 1 px) with a diameter
+     within the method's bound (1.95 mm to 2.0 mm + 2 px), and at least 60
+     valid with a 1024-candidate budget (the default budget of 96 is spent
+     on tied plateau cells before the distance suppression).
 The line before the last is the kernels' JSON record (each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
@@ -171,6 +199,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -203,6 +232,15 @@ POSE_TILT = (15.0, 1.0, 0.5)
 POSE_STAIRS = (12, 0.7)
 LIVE = (64, 32)
 REQUEST = ((1, 8, 32), 200)
+# Phase 10, the calibration commands at their users' sizes: 20 chessboards
+# of 6x6 inner corners and 3 mm squares (intrinsic_calibration.py:190-191)
+# imaged at 640x480 through CAL_K; the extrinsic solve's 65 markers with
+# 0.3 px of noise and 7 of them (10%) moved by 20-40 px; the diameter photo:
+# 1080x1920, the same board beside 65 dark 2.0 mm disks at 15 px/mm.
+CAL_VIEWS, CAL_SQUARE_MM = 20, 3.0
+CAL_K = ((600.0, 0.0, 322.0), (0.0, 590.0, 238.0), (0.0, 0.0, 1.0))
+PNP_POSE = ((0.12, -0.2, 0.05), (1.5, -2.0, 42.0))
+DIAMETER_PX_PER_MM = 15.0
 # --only fields: (rows, cols, batches), each batch the first frames of one
 # render, so the 64-frame inputs are the first 64 of the 1024.
 ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
@@ -219,6 +257,9 @@ GATHER_ROUNDS = 3
 # Window-sum slots that kernel and plain version give bit-equal: lo, hi and
 # the count of gated pixels.
 WS_EXACT_SLOTS = (21, 22, 23)
+
+# cuBLAS's and CUTLASS's GEMM kernels by name (the profiler's kernel names).
+GEMM_KERNEL = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet, 700 W
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, same source
@@ -379,6 +420,76 @@ def _build_alt(src: str, entry: str, argtypes=None):
     fn.argtypes = list(argtypes or build._SIGNATURES[entry])
     fn.restype = ctypes.c_int
     return fn
+
+
+@contextlib.contextmanager
+def fixed_zip_clock():
+    """Every zip member written inside is stamped 2024-01-02 03:04:05 (an
+    XLSX file is a zip whose members carry their write time)."""
+    import types
+    import zipfile
+    stamp = time.mktime((2024, 1, 2, 3, 4, 5, 0, 0, -1))
+    saved = zipfile.time
+    zipfile.time = types.SimpleNamespace(time=lambda: stamp,
+                                         localtime=time.localtime)
+    try:
+        yield
+    finally:
+        zipfile.time = saved
+
+
+def render_board(K, rvec, tvec, square_mm, n, h, w, device, ss=3):
+    """A checkerboard of n x n squares (its inner corners (n-1) x (n-1))
+    imaged through the pinhole camera K at pose (rvec, tvec), supersampled
+    ss x ss: tests/test_undistort.py:129-144 in torch, as uint8 numpy."""
+    import torch
+    from vision_basedsensor_tpu_torch.core.transforms import rodrigues
+    f64 = dict(dtype=torch.float64, device=device)
+    R = rodrigues(torch.tensor(rvec, **f64))
+    H = torch.tensor(K, **f64) @ torch.stack(
+        [R[:, 0], R[:, 1], torch.tensor(tvec, **f64)], dim=1)
+    ys = (torch.arange(h * ss, **f64) + 0.5) / ss - 0.5
+    xs = (torch.arange(w * ss, **f64) + 0.5) / ss - 0.5
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    uvw = torch.linalg.inv(H) @ torch.stack([xx.ravel(), yy.ravel(),
+                                             torch.ones_like(xx.ravel())])
+    iu = torch.floor(uvw[0] / uvw[2] / square_mm).long().reshape(xx.shape)
+    iv = torch.floor(uvw[1] / uvw[2] / square_mm).long().reshape(xx.shape)
+    inside = (iu >= 0) & (iu < n) & (iv >= 0) & (iv < n)
+    img = torch.where(inside & ((iu + iv) % 2 == 0), 30.0, 215.0)
+    img = img.reshape(h, ss, w, ss).mean((1, 3))
+    return torch.round(img).to(torch.uint8).cpu().numpy()
+
+
+def render_diameter_photo(device, h=1080, w=1920, ss=4, seed=0):
+    """The diameter-validation photo (DiameterValidation.py's scene): a 7 x 7
+    -square board (6x6 inner corners) of CAL_SQUARE_MM squares beside 65 dark
+    disks of 2.0 mm in a 13 x 5 grid, at DIAMETER_PX_PER_MM, supersampled;
+    uint8 numpy and the disks' centres (x, y) in pixels."""
+    import numpy as np
+    import torch
+    s = DIAMETER_PX_PER_MM
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=device)
+    ys = (torch.arange(h * ss, **f64) + 0.5) / ss - 0.5
+    xs = (torch.arange(w * ss, **f64) + 0.5) / ss - 0.5
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    sq = CAL_SQUARE_MM * s
+    iu = torch.floor((xx - 120.0) / sq).long()
+    iv = torch.floor((yy - 380.0) / sq).long()
+    inside = (iu >= 0) & (iu < 7) & (iv >= 0) & (iv < 7)
+    img = torch.where(inside & ((iu + iv) % 2 == 0), 30.0, 215.0)
+    centres = np.stack([620.0 + (np.arange(65) % 13) * 95.0,
+                        180.0 + (np.arange(65) // 13) * 150.0], -1)
+    centres += rng.uniform(-0.5, 0.5, centres.shape)
+    r = 1.0 * s
+    for cx, cy in centres:
+        x0, x1 = int((cx - r - 2) * ss), int((cx + r + 2) * ss)
+        y0, y1 = int((cy - r - 2) * ss), int((cy + r + 2) * ss)
+        d = torch.hypot(xx[y0:y1, x0:x1] - cx, yy[y0:y1, x0:x1] - cy)
+        img[y0:y1, x0:x1] = torch.where(d <= r, 40.0, img[y0:y1, x0:x1])
+    img = img.reshape(h, ss, w, ss).mean((1, 3))
+    return torch.round(img).to(torch.uint8).cpu().numpy(), centres
 
 
 def main(argv=None) -> None:
@@ -928,8 +1039,9 @@ def main(argv=None) -> None:
               flush=True)
         for t, n, k in rows[:12]:
             print(f"  {t / 1e3:9.3f} ms {n:6d}x  {k[:90]}")
+        gemm = sum(t for t, _, k in rows if GEMM_KERNEL.search(k))
         out = {"kernels": len(spans), "busy_ms": busy / 1e3,
-               "batch_ms": 1e3 * batch_s,
+               "batch_ms": 1e3 * batch_s, "gemm_ms": gemm / 1e3,
                "top": [[k, n, t / 1e3] for t, n, k in rows[:40]]}
         if host_top:
             ops = sorted(((e.self_cpu_time_total, e.count, e.key)
@@ -943,6 +1055,135 @@ def main(argv=None) -> None:
             out["host_self_ms"] = total / 1e3
             out["host_top"] = [[k, n, t / 1e3] for t, n, k in ops[:host_top]]
         return out
+
+    def fast_filters_phase(scene, frames, label, run_cfg, out32):
+        """The batch of a fused run again with DetectConfig(fast_filters=True)
+        (bfloat16 filter GEMMs, float32 accumulation): its launches, 65/65
+        markers, the drift's direction, its detections against the float32
+        run's (the rest frame within the reference's 0.01 px), the DoG mask
+        pixels that differ from the float32 mask, the W pass's output dtype;
+        fps both ways in turns and the filter stage's device time (its GEMMs
+        under --profile)."""
+        from vision_basedsensor_tpu_torch.core.imaging import (_sep_filter,
+                                                               gaussian_taps)
+        batch, h, w = frames.shape
+        cam = scene.cam
+        bf16 = torch.bfloat16
+        cfg16 = dataclasses.replace(run_cfg, detect=dataclasses.replace(
+            run_cfg.detect, fast_filters=True))
+        what = f"{label} fast_filters"
+        rec: dict = {"shape": [batch, h, w]}
+        ref16 = initialize(frames[0], cfg16)          # warm-up, not counted
+        process_frames(frames[:2], ref16, cam, cfg16)
+        torch.cuda.synchronize()
+        reset_counts()
+        ref16 = initialize(frames[0], cfg16)
+        out16 = process_frames(frames, ref16, cam, cfg16)
+        torch.cuda.synchronize()
+        launches = rec["launches"] = read_counts()
+        expect = {"fields", "gather", "scan"}
+        if (any((n > 0) != (k in expect) for k, n in launches.items())
+                or launches["scan"] != 1):
+            raise AssertionError(f"{what}: expected launches of exactly "
+                                 f"{sorted(expect)} (one scan), got "
+                                 f"{launches}")
+        n_ref = int(ref16.valid.sum())
+        tracked = out16.tracked.valid.sum(-1)
+        dz = float(out16.recon.from_first[-1, :, 2].mean())
+        rec.update(ref_markers=n_ref, tracked_min=int(tracked.min()),
+                   from_first_z_last_mm=dz)
+        if n_ref != 65 or int(tracked.min()) != 65:
+            raise AssertionError(f"{what}: expected 65/65 markers in every "
+                                 f"frame, got ref {n_ref}, tracked min "
+                                 f"{int(tracked.min())}")
+        if not dz < 0.0:
+            raise AssertionError(f"{what}: last-frame mean dz {dz} mm for a "
+                                 "drift along -z")
+
+        # Matched detections: each float32 detection to its nearest bf16
+        # detection of the same frame.
+        a, b = out32.detections, out16.detections
+        d = torch.cdist(a.xy.double(), b.xy.double())
+        d = torch.where(b.valid[:, None, :], d, torch.full_like(d, math.inf))
+        nearest = d.amin(-1)
+        per_det = nearest[a.valid]
+        same_count = bool(torch.equal(a.valid.sum(-1), b.valid.sum(-1)))
+        rest = float(nearest[0][a.valid[0]].max())
+        rec.update(same_counts=same_count, max_px=float(per_det.max()),
+                   p99_px=float(torch.quantile(per_det, 0.99)),
+                   rest_frame_max_px=rest)
+        print(f"{what}: launches {launches}; 65/65 markers in every frame, "
+              f"mean dz at last frame {dz:.4f} mm; detections vs float32: "
+              f"equal counts {same_count}, nearest distance max "
+              f"{rec['max_px']:.6f} px, p99 {rec['p99_px']:.6f} px, rest frame "
+              f"max {rest:.6f} px [{card}]", flush=True)
+        if rest >= 0.01:
+            raise AssertionError(f"{what}: rest frame {rest} px from the "
+                                 "float32 detections (reference: < 0.01)")
+
+        prof = profile_of(h)
+        gray = frames.float()
+        m32 = dog_area_mask(gray, prof, dcfg.dog_offset)
+        m16 = dog_area_mask(gray, prof, dcfg.dog_offset, bf16)
+        flips = int((m32 != m16).sum())
+        rec.update(dog_flips=flips, dog_flip_share=flips / m32.numel())
+        del m32, m16
+        taps = gaussian_taps(prof.template_size, prof.template_sigma)
+        w_dtype = _sep_filter(gray[:2], None, taps, "zero", bf16).dtype
+        h_out = _sep_filter(gray[:2], taps, None, "zero", bf16)
+        if w_dtype != torch.float32 or not torch.equal(
+                h_out, h_out.bfloat16().float()):
+            raise AssertionError(f"{what}: W pass gives {w_dtype}, H pass "
+                                 "not bfloat16-rounded")
+        print(f"{what}: DoG mask pixels differing from the float32 mask "
+              f"{flips} of {gray.numel()} ({100 * flips / gray.numel():.5f}%);"
+              f" H pass rounded to bfloat16, W pass output {w_dtype} "
+              f"[{card}]", flush=True)
+
+        ref32 = initialize(frames[0], run_cfg)
+
+        def run32():
+            process_frames(frames, ref32, cam, run_cfg)
+
+        def run16():
+            process_frames(frames, ref16, cam, cfg16)
+
+        s32 = _wall_s(run32, 2)
+        s16 = _wall_s(run16, 2)
+        s16 += _wall_s(run16, 2)
+        s32 += _wall_s(run32, 2)
+        rec.update(fps_float32=batch / statistics.median(s32),
+                   fps_fast=batch / statistics.median(s16), s_float32=s32,
+                   s_fast=s16)
+
+        def filters(fdt):
+            area = dog_area_mask(gray, prof, dcfg.dog_offset, fdt).float()
+            return normxcorr_gaussian(area, prof.template_size,
+                                      prof.template_sigma, binary_input=True,
+                                      compute_dtype=fdt)
+
+        rec["filter_stage_ms"] = {"float32": _event_ms(lambda: filters(None),
+                                                       3),
+                                  "fast": _event_ms(lambda: filters(bf16), 3)}
+        f_ms = rec["filter_stage_ms"]
+        print(f"{what}: pipeline fps float32 filters "
+              f"{rec['fps_float32']:.1f} (s " + ", ".join(
+                  f"{t:.4f}" for t in s32) + f"), fast_filters "
+              f"{rec['fps_fast']:.1f} (s " + ", ".join(f"{t:.4f}" for t in s16)
+              + f"); filter stage (DoG + NCC) {f_ms['float32']:.2f} ms vs "
+              f"{f_ms['fast']:.2f} ms [{card}]", flush=True)
+        if args.profile:
+            rec["filter_gemm_ms"] = {}
+            for name, fdt in (("float32", None), ("fast", bf16)):
+                p = profile_batch(lambda: filters(fdt),
+                                  f"{what}: filter stage {name}",
+                                  rec["filter_stage_ms"][name] / 1e3)
+                rec["filter_gemm_ms"][name] = p["gemm_ms"]
+            print(f"{what}: filter GEMMs' device time float32 "
+                  f"{rec['filter_gemm_ms']['float32']:.3f} ms, bfloat16 "
+                  f"{rec['filter_gemm_ms']['fast']:.3f} ms [{card}]",
+                  flush=True)
+        return rec
 
     def scan_phase(world, seen, what, launches):
         """The displacement-scan kernel against its plain version on a
@@ -1805,6 +2046,241 @@ def main(argv=None) -> None:
         rec["request"] = request_phase()
         return rec
 
+    def calibrate_phase(workdir):
+        """Phase 10: synth, a probe indentation through run_video, then
+        calibrate-intrinsics, calibrate-extrinsics and diameter in-process,
+        each with its launches counted alone and held to the library calls
+        it stands for and to the rendered truth."""
+        from vision_basedsensor_tpu_torch import layout
+        from vision_basedsensor_tpu_torch.analysis.diameter import \
+            measure_diameters
+        from vision_basedsensor_tpu_torch.calibrate import (
+            CalibrationArtifact, solve_pnp_ransac)
+        from vision_basedsensor_tpu_torch.calibrate.images import \
+            calibrate_from_images
+        from vision_basedsensor_tpu_torch.calibrate.zhang import project_posed
+        from vision_basedsensor_tpu_torch.core.transforms import rodrigues
+        from vision_basedsensor_tpu_torch.pipeline import run_video
+        from vision_basedsensor_tpu_torch.synth import (
+            indentation_staircase, membrane_indentation_field)
+        rec: dict = {"launches": {}}
+        t_phase = time.perf_counter()
+
+        def run_cal(name, argv, expect=frozenset()):
+            return run_command("calibrate", name, argv, expect,
+                               rec["launches"])
+
+        scene = default_scene(480, 640, device=dev)
+
+        # 1. synth: the staircase and the wave, each equal to render_frames.
+        t = np.arange(60, dtype=np.float32)
+        wave = np.zeros((60, 65, 3), np.float32)
+        wave[:, :, 2] = -(1 - np.cos(t / 10.0))[:, None]
+        for motion, disp, extra in (
+                ("staircase", indentation_staircase(device=dev), []),
+                ("wave", torch.from_numpy(wave).to(dev), ["--frames", "60"])):
+            path = os.path.join(workdir, f"synth_{motion}.npy")
+            _, rec[f"synth_{motion}_s"], _ = run_cal(
+                f"synth {motion}", ["synth", "--output", path, "--motion",
+                                    motion, "--height", "480", "--width",
+                                    "640", *extra])
+            got = np.load(path)
+            want = render_frames(scene, disp).to(torch.uint8).cpu().numpy()
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"calibrate: synth {motion} {got.shape}"
+                                     " differs from render_frames")
+            print(f"calibrate: synth {motion} {got.shape} byte-equal to "
+                  f"render_frames [{card}]", flush=True)
+
+        # 2. A probe indentation with membrane flow through run_video
+        # (tests/test_reconstruct.py:97-131's bounds).
+        field = membrane_indentation_field(1.5, contact_xy=(2.0, -1.0),
+                                           probe_radius_mm=5.0,
+                                           tangential_frac=0.3, device=dev)
+        frames = render_frames(scene, torch.stack([torch.zeros_like(field),
+                                                   field]))
+        mcfg = PipelineConfig(
+            reconstruct=ReconstructConfig(warmup_frames=0),
+            track=TrackConfig(association_mode="frame0"))
+        torch.cuda.synchronize()
+        reset_counts()
+        out = run_video(frames, scene.cam, mcfg, apply_warmup=False)
+        torch.cuda.synchronize()
+        launches = rec["launches"]["membrane run_video"] = read_counts()
+        expect = {"fields", "gather", "scan"}
+        if any((n > 0) != (k in expect) for k, n in launches.items()):
+            raise AssertionError(f"calibrate: membrane run_video launched "
+                                 f"{launches}, expected {sorted(expect)}")
+        seen = out.recon.seen
+        both = seen[0] & seen[1]
+        f = field.double()
+        got = out.recon.from_first[1].double()
+        err = (got - f)[both].abs()
+        med = [float(v) for v in err.median(0).values]
+        mag = torch.hypot(f[:, 0], f[:, 1])
+        m = both & (mag > 0.1)
+        cos = ((got[m, 0] * f[m, 0] + got[m, 1] * f[m, 1])
+               / torch.clamp(torch.hypot(got[m, 0], got[m, 1]) * mag[m],
+                             min=1e-9))
+        rec["membrane"] = dict(both=int(both.sum()), median_abs_err_mm=med,
+                               median_cos=float(cos.median()),
+                               launches=launches)
+        print(f"calibrate: membrane indentation 1.5 mm at 640x480: "
+              f"{int(both.sum())} markers in both frames, median |error| "
+              f"x {med[0]:.4f} y {med[1]:.4f} z {med[2]:.4f} mm, median "
+              f"direction cosine {rec['membrane']['median_cos']:.4f}; "
+              f"launches {launches} [{card}]", flush=True)
+        if not (int(both.sum()) >= 60 and med[0] < 0.05 and med[1] < 0.05
+                and med[2] < 0.10 and rec["membrane"]["median_cos"] > 0.95):
+            raise AssertionError(f"calibrate: membrane bounds missed: "
+                                 f"{rec['membrane']}")
+        del frames, out
+
+        # 3. calibrate-intrinsics on 20 rendered boards.
+        K = np.array(CAL_K)
+        boards = os.path.join(workdir, "boards")
+        os.makedirs(boards)
+        for k in range(CAL_VIEWS):
+            rvec = (0.3 * math.sin(k * 1.3), 0.3 * math.cos(k * 0.9),
+                    0.4 * math.sin(k * 2.1))
+            tvec = (-10.5 + 4 * math.sin(k * 0.7), -10.5 + 3 * math.cos(k * 1.1),
+                    55.0 + 8 * math.sin(k * 0.5))
+            np.save(os.path.join(boards, f"board_{k:02d}.npy"),
+                    render_board(K, rvec, tvec, CAL_SQUARE_MM, 7, 480, 640,
+                                 dev))
+        intr = os.path.join(workdir, "IntrinsicParameters.xlsx")
+        direct = os.path.join(workdir, "direct_intrinsics.xlsx")
+        with fixed_zip_clock():
+            text, rec["intrinsics_s"], _ = run_cal(
+                "calibrate-intrinsics", ["calibrate-intrinsics", boards,
+                                         "--output", intr])
+            images = [np.load(os.path.join(boards, n))
+                      for n in sorted(os.listdir(boards))]
+            lib = calibrate_from_images(images, device=dev)
+            lib.artifact.save_intrinsics_xlsx(direct)
+        with open(intr, "rb") as fa, open(direct, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError("calibrate: calibrate-intrinsics XLSX "
+                                     "!= calibrate_from_images")
+        art = CalibrationArtifact.load_intrinsics_xlsx(intr)
+        k_err = max(abs(art.fx - K[0, 0]), abs(art.fy - K[1, 1]),
+                    abs(art.cx - K[0, 2]), abs(art.cy - K[1, 2]))
+        rec["intrinsics"] = dict(fx=art.fx, fy=art.fy, cx=art.cx, cy=art.cy,
+                                 rms_px=art.intrinsic_reproj_error,
+                                 max_k_err_px=k_err, text=text.strip())
+        print(f"calibrate: calibrate-intrinsics on {CAL_VIEWS} 640x480 boards"
+              f": {text.strip().splitlines()[0]}; fx {art.fx:.3f} fy "
+              f"{art.fy:.3f} cx {art.cx:.3f} cy {art.cy:.3f} (largest error "
+              f"{k_err:.3f} px), RMS {art.intrinsic_reproj_error:.4f} px, "
+              f"XLSX byte-equal to the library calls [{card}]", flush=True)
+        if (f"used {CAL_VIEWS}/{CAL_VIEWS}" not in text or k_err >= 6.0
+                or art.intrinsic_reproj_error >= 0.3):
+            raise AssertionError(f"calibrate: intrinsics {rec['intrinsics']}")
+
+        # 4. calibrate-extrinsics: the markers through those intrinsics.
+        cam64 = art.to_camera(torch.float64, device=dev)
+        world = layout.dome_layout()[:, 1:].astype(np.float64)
+        R_true = rodrigues(torch.tensor(PNP_POSE[0], dtype=torch.float64,
+                                        device=dev))
+        T_true = torch.tensor(PNP_POSE[1], dtype=torch.float64, device=dev)
+        pix = project_posed(cam64, R_true, T_true,
+                            torch.as_tensor(world, device=dev)).cpu().numpy()
+        rng = np.random.default_rng(10)
+        pix += rng.normal(0.0, 0.3, pix.shape)
+        outl = np.sort(rng.choice(65, 7, replace=False))
+        pix[outl] += (rng.uniform(20, 40, (7, 2))
+                      * rng.choice([-1.0, 1.0], (7, 2)))
+        wcsv = os.path.join(workdir, "world_points.csv")
+        pcsv = os.path.join(workdir, "pixel_points.csv")
+        with open(wcsv, "w") as fw, open(pcsv, "w") as fp:
+            fw.write("marker_id,Xw,Yw,Zw\n")
+            fp.write("marker_id,u,v\n")
+            for i in range(65):
+                fw.write(f"{i + 1}," + ",".join(repr(float(v))
+                                                for v in world[i]) + "\n")
+                fp.write(f"{i + 1}," + ",".join(repr(float(v))
+                                                for v in pix[i]) + "\n")
+        ext = os.path.join(workdir, "ExtrinsicParameters.xlsx")
+        text, rec["extrinsics_s"], _ = run_cal(
+            "calibrate-extrinsics", ["calibrate-extrinsics", intr, wcsv, pcsv,
+                                     "--output", ext])
+        pnp = solve_pnp_ransac(world, pix, cam64, PipelineConfig().calibrate)
+        got_art = art.load_extrinsics_xlsx(ext)
+        if not (np.array_equal(got_art.R_wc, pnp.R_wc.cpu().numpy())
+                and np.array_equal(got_art.T_wc, pnp.T_wc.cpu().numpy())):
+            raise AssertionError("calibrate: calibrate-extrinsics XLSX pose "
+                                 "!= solve_pnp_ransac")
+        rejected = np.where(~pnp.inliers.cpu().numpy())[0]
+        R_err = R_true.T @ pnp.R_wc
+        ang = math.degrees(math.acos(max(-1.0, min(1.0, (float(
+            torch.trace(R_err)) - 1.0) / 2.0))))
+        t_err = float(torch.linalg.vector_norm(pnp.T_wc - T_true))
+        rec["extrinsics"] = dict(
+            inliers=int(pnp.num_inliers), rejected=rejected.tolist(),
+            outliers=outl.tolist(), rotation_err_deg=ang, t_err_mm=t_err,
+            mean_reproj_px=float(pnp.mean_reproj_error),
+            confidence=float(pnp.achieved_confidence), text=text.strip())
+        print(f"calibrate: calibrate-extrinsics, 65 markers, 7 outliers: "
+              f"{int(pnp.num_inliers)} inliers, outliers rejected "
+              f"{rejected.tolist() == outl.tolist()}, rotation error "
+              f"{ang:.5f} deg, T error {t_err:.5f} mm, mean reprojection "
+              f"error {float(pnp.mean_reproj_error):.3f} px over all points "
+              f"(1000 hypotheses, 8 px) [{card}]", flush=True)
+        if (rejected.tolist() != outl.tolist() or ang >= 0.1
+                or t_err >= 0.1):
+            raise AssertionError(f"calibrate: extrinsics {rec['extrinsics']}")
+
+        # 5. diameter on a 1080x1920 photo: board beside 65 disks.
+        img, centres = render_diameter_photo(dev)
+        photo = os.path.join(workdir, "diameter_photo.npy")
+        np.save(photo, img)
+        text, rec["diameter_s"], err = run_cal("diameter",
+                                               ["diameter", photo])
+        scale = float(text.split("Scale: ")[1].split()[0])
+        res = measure_diameters(img, scale, device=dev)
+        valid = res.valid.cpu().numpy()
+        d = res.diameters_mm.cpu().numpy()[valid]
+        c = res.centers.cpu().numpy()[valid]
+        rows = ["x,y,diameter_mm,circularity"] + [
+            f"{x:.1f},{y:.1f},{dd:.3f},{cc:.3f}" for (x, y), dd, cc in zip(
+                c, d, res.circularity.cpu().numpy()[valid])]
+        printed = text.strip().splitlines()
+        if printed[1:] != rows:
+            raise AssertionError("calibrate: diameter rows != "
+                                 "measure_diameters")
+        off = np.linalg.norm(c[:, None] - centres[None], axis=-1).min(1)
+        wide = measure_diameters(img, scale, max_markers=1024, device=dev)
+        n_wide = int(wide.valid.sum())
+        d_wide = wide.diameters_mm[wide.valid].cpu().numpy()
+        rec["diameter"] = dict(
+            scale_px_per_mm=scale, valid=int(valid.sum()),
+            mean_mm=float(d.mean()), std_mm=float(d.std()),
+            max_centre_err_px=float(off.max()), valid_budget_1024=n_wide,
+            mean_mm_budget_1024=float(d_wide.mean()))
+        print(f"calibrate: diameter on a 1080x1920 photo (board beside 65 "
+              f"2.0 mm disks at {DIAMETER_PX_PER_MM} px/mm): scale "
+              f"{scale:.2f} px/mm, {int(valid.sum())} valid markers, mean "
+              f"{d.mean():.3f} mm, std {d.std():.3f} mm (reference: 2.01 +- "
+              f"0.04), centres within {off.max():.3f} px of the disks; rows "
+              f"equal to measure_diameters; with a 1024-candidate budget "
+              f"{n_wide} valid, mean {d_wide.mean():.3f} mm [{card}]",
+              flush=True)
+        # The reference's measurement (analysis/diameter.py): the enclosing
+        # circle of the mask's pixel centres + 0.5 px a side reads a disk of
+        # D px as D to D + 2 px; its 96-candidate budget is spent before
+        # the distance suppression, on the plateau cells of the first disks
+        # and squares in row order (PERF.md §6).
+        hi = 2.0 + 2.0 / DIAMETER_PX_PER_MM
+        if (abs(scale - DIAMETER_PX_PER_MM) > 0.01 * DIAMETER_PX_PER_MM
+                or valid.sum() < 10 or off.max() > 1.0
+                or d.min() < 1.95 or d.max() > hi or n_wide < 60
+                or d_wide.min() < 1.95 or d_wide.max() > hi):
+            raise AssertionError(f"calibrate: diameter {rec['diameter']}")
+        rec["phase_s"] = time.perf_counter() - t_phase
+        print(f"calibrate: phase {rec['phase_s']:.1f} s [{card}]",
+              flush=True)
+        return rec
+
     def serve_jpegs(jpegs):
         """A localhost MJPEG server (multipart/x-mixed-replace with
         Content-Length) that sends ``jpegs`` once a request; returns the
@@ -2394,6 +2870,8 @@ def main(argv=None) -> None:
             records["phases"]["displacement_scan"] = scan_phase(
                 out.recon.world, out.recon.seen, f"{batch}x65",
                 rec["launches"]["scan"])
+            records["phases"]["fast_filters"] = fast_filters_phase(
+                scene, frames, label, run_cfg, out)
         what = f"{batch}x{h}x{w} K={k}"
         n_it = 10 if batch * h * w <= 2 ** 29 else 5
         ncc, area, gray = fields_inputs(frames, prof)
@@ -2488,6 +2966,8 @@ def main(argv=None) -> None:
     import tempfile
     with tempfile.TemporaryDirectory() as td:
         records["phases"]["pose"] = pose_phase(td)
+    with tempfile.TemporaryDirectory() as td:
+        records["phases"]["calibrate"] = calibrate_phase(td)
     finish()
 
 

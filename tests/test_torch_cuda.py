@@ -720,3 +720,124 @@ def test_contact_state_payload_from_the_card(cuda):
         for k in ("tilt_deg", "plane", "mean_vector_mm", "mean_magnitude_mm"):
             np.testing.assert_allclose(got[k], want[k], atol=1e-4, err_msg=k)
     assert abs(got["tilt_deg"] - 15.0) < 1e-2 and got["valid"] is True
+
+
+@pytest.mark.parametrize("shape", [(4, 480, 640), (2, 437, 467)])
+def test_sep_filter_bf16_on_the_card(cuda, shape):
+    """The fast_filters GEMMs on the card against their CPU plain version
+    on the same input: the H pass's output is bfloat16 (float32 sums in
+    another order: at most one bfloat16 step apart), the W pass gives
+    float32 (not rounded to bfloat16) within float32 sum-order error, and
+    the two passes together within one H-pass step through the W taps."""
+    from vision_basedsensor_tpu_torch.core.imaging import (_sep_filter,
+                                                           gaussian_taps)
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.integers(0, 256, shape), dtype=torch.float32)
+    taps = gaussian_taps(17, 8.0)
+    bf = torch.bfloat16
+    h_gpu = _sep_filter(x.to(cuda), taps, None, "reflect101", bf).cpu()
+    h_cpu = _sep_filter(x, taps, None, "reflect101", bf)
+    assert h_gpu.dtype == torch.float32
+    assert torch.equal(h_gpu, h_gpu.bfloat16().float())
+    step = torch.abs(h_cpu) * 2.0 ** -7
+    assert bool((torch.abs(h_gpu - h_cpu) <= step).all())
+
+    w_gpu = _sep_filter(x.to(cuda), None, taps, "zero", bf)
+    assert w_gpu.dtype == torch.float32
+    w_gpu = w_gpu.cpu()
+    w_cpu = _sep_filter(x, None, taps, "zero", bf)
+    np.testing.assert_allclose(w_gpu.numpy(), w_cpu.numpy(), rtol=1e-5,
+                               atol=1e-3)
+    assert not torch.equal(w_gpu, w_gpu.bfloat16().float())
+
+    both_gpu = _sep_filter(x.to(cuda), taps, taps, "reflect101", bf).cpu()
+    both_cpu = _sep_filter(x, taps, taps, "reflect101", bf)
+    assert float((both_gpu - both_cpu).abs().max()) <= 255.0 * 2.0 ** -7
+
+
+def _calibration_views(n_views=8, noise=0.2, seed=3):
+    """Corners of a 6x6 board seen through a known camera, on the CPU."""
+    from vision_basedsensor_tpu_torch.calibrate.images import \
+        board_object_points
+    from vision_basedsensor_tpu_torch.calibrate.zhang import (
+        intrinsic_camera, project_posed)
+    from vision_basedsensor_tpu_torch.core.transforms import rodrigues
+    rng = np.random.default_rng(seed)
+    f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+    cam = intrinsic_camera(f64(620.0), f64(600.0), f64(310.0), f64(245.0),
+                           f64([-0.15, 0.07, 0.0008, -0.0006, 0.02]))
+    obj = board_object_points((6, 6), 3.0)
+    imgs = []
+    for _ in range(n_views):
+        rvec = f64(rng.uniform(-0.35, 0.35, 3))
+        tvec = f64([rng.uniform(-8, 2), rng.uniform(-8, 2),
+                    rng.uniform(45, 75)])
+        uv = project_posed(cam, rodrigues(rvec), tvec, f64(obj)).numpy()
+        imgs.append(uv + rng.normal(0, noise, uv.shape))
+    return np.stack([obj] * n_views), np.stack(imgs), cam
+
+
+def test_calibrate_intrinsics_on_the_card(cuda):
+    """Zhang's solve in float64 on the card: the same result as on the CPU
+    within 1e-8 relative for the intrinsics, 1e-7 for the distortion and
+    1e-9 for the RMS. cuSOLVER's SVD and LAPACK's differ in the last bits,
+    and a least-squares solution with nonzero residuals moves with the
+    square of the Jacobian's condition number (6e4 here). Observed on the
+    H100: 3e-9 relative in cx, 2e-8 in the distortion (k3, the worst
+    conditioned), 1e-15 in the RMS."""
+    from vision_basedsensor_tpu_torch.calibrate import calibrate_intrinsics
+    objs, imgs, _ = _calibration_views()
+    got = calibrate_intrinsics(objs, imgs, device=cuda)
+    want = calibrate_intrinsics(objs, imgs, device="cpu")
+    assert got.cam.fx.device.type == cuda.type
+    for name in ("fx", "fy", "cx", "cy"):
+        np.testing.assert_allclose(float(getattr(got.cam, name)),
+                                   float(getattr(want.cam, name)), rtol=1e-8)
+    np.testing.assert_allclose(got.cam.dist.cpu().numpy(),
+                               want.cam.dist.numpy(), rtol=0, atol=1e-7)
+    np.testing.assert_allclose(float(got.mean_reproj_error),
+                               float(want.mean_reproj_error), atol=1e-9)
+    # 0.2 px of noise on 8 views moves fx by ~15 px (on the CPU too).
+    assert abs(float(got.cam.fx) - 620.0) < 20.0
+    assert float(got.mean_reproj_error) < 0.3
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_solve_pnp_ransac_on_the_card(cuda, planar):
+    """PnP in float64 on the card: on the same hypotheses the same pose as
+    on the CPU within 1e-9; its own draw (a generator on the card) rejects
+    the same outliers."""
+    from vision_basedsensor_tpu_torch import layout
+    from vision_basedsensor_tpu_torch.calibrate import pnp
+    from vision_basedsensor_tpu_torch.calibrate.zhang import project_posed
+    from vision_basedsensor_tpu_torch.config import CalibrateConfig
+    from vision_basedsensor_tpu_torch.core.camera import CameraModel
+    from vision_basedsensor_tpu_torch.core.transforms import rodrigues
+    rng = np.random.default_rng(7)
+    _, _, cam = _calibration_views(1)
+    world = layout.dome_layout()[:, 1:].astype(np.float64)
+    if planar:
+        world[:, 2] = 0.0
+    R = rodrigues(torch.tensor([0.1, -0.2, 0.05], dtype=torch.float64))
+    t = torch.tensor([1.0, -2.0, 45.0], dtype=torch.float64)
+    img = project_posed(cam, R, t, torch.tensor(world)).numpy()
+    img += rng.normal(0, 0.3, img.shape)
+    out = rng.choice(65, 7, replace=False)
+    img[out] += rng.uniform(20, 40, (7, 2)) * rng.choice([-1, 1], (7, 2))
+    cfg = CalibrateConfig()
+    on = {d: CameraModel(*(v.to(d) for v in cam)) for d in ("cpu", cuda)}
+    prob_cpu = pnp.prepare(world, img, on["cpu"])
+    idx = pnp.draw_hypotheses(65, prob_cpu.m_min, 1000, 0,
+                              torch.device("cpu"))
+    want = pnp.solve_from_hypotheses(prob_cpu, idx, cfg)
+    got = pnp.solve_from_hypotheses(pnp.prepare(world, img, on[cuda]),
+                                    idx.to(cuda), cfg)
+    np.testing.assert_allclose(got.R_wc.cpu().numpy(), want.R_wc.numpy(),
+                               atol=1e-9)
+    np.testing.assert_allclose(got.T_wc.cpu().numpy(), want.T_wc.numpy(),
+                               atol=1e-9)
+    assert torch.equal(got.inliers.cpu(), want.inliers)
+    own = pnp.solve_pnp_ransac(world, img, on[cuda], cfg)
+    assert own.R_wc.device.type == cuda.type
+    assert sorted(np.where(~own.inliers.cpu().numpy())[0]) == sorted(out)
+    np.testing.assert_allclose(own.T_wc.cpu().numpy(), t.numpy(), atol=0.1)

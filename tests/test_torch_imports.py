@@ -50,6 +50,11 @@ def test_port_imports_without_jax():
     # So do the live path's publisher and logger.
     for mod in ("io.publish", "utils", "utils.log"):
         assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
+    # So do the calibration, diameter and synth modules.
+    for mod in ("core.transforms", "calibrate.homography", "calibrate.zhang",
+                "calibrate.pnp", "calibrate.chessboard", "calibrate.images",
+                "calibrate.plots", "analysis.diameter", "synth.degrade"):
+        assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
     assert bad == "[]"
 
 

@@ -126,14 +126,14 @@ def test_cpu_run_launches_no_kernel(runs):
     assert runs["launches"] == (0, 0)
 
 
-@pytest.mark.parametrize("change", ["fast_filters", "save_calibration",
-                                    "load_calibration"])
+@pytest.mark.parametrize("change", ["save_calibration", "load_calibration"])
 def test_unported_options_raise(runs, change, tmp_path):
-    """What the port still lacks raises NotImplementedError, never a silent
-    fallback: bf16 filters. Session calibration artifacts raised here until
-    ``calibrate/artifact.py`` was ported; now a session saves a real
-    artifact and loads it back, on a session written by the JAX package
-    too (tests/test_torch_io_table.py holds the bytes)."""
+    """Options the port once lacked. Session calibration artifacts raised
+    here until ``calibrate/artifact.py`` was ported; now a session saves a
+    real artifact and loads it back, on a session written by the JAX
+    package too (tests/test_torch_io_table.py holds the bytes). The bf16
+    filters (``fast_filters``) raised until they were ported; they are held
+    to JAX's in tests/test_torch_fast_filters.py."""
     from vision_basedsensor_tpu.calibrate import CalibrationArtifact as JArt
     from vision_basedsensor_tpu.io import session as jsession
 
@@ -143,13 +143,6 @@ def test_unported_options_raise(runs, change, tmp_path):
     art = dict(fx=600.5, fy=601.25, cx=192.0, cy=120.0, skew=0.0,
                dist=np.array([-0.18, 0.05, 0.001, -0.002, 0.0]),
                R_wc=np.eye(3), T_wc=np.array([0.0, 0.0, 40.0]))
-    if change == "fast_filters":
-        with pytest.raises(NotImplementedError):
-            tc = convert.config_from_jax(dataclasses.replace(
-                runs["jc"], detect=dataclasses.replace(jcfg.DetectConfig(),
-                                                       fast_filters=True)))
-            tpipe.run_video(to_torch(runs["frames"][:1]), runs["cam"], tc)
-        return
     if change == "save_calibration":
         ref = convert.reference_from_numpy(runs["jref"], device="cpu")
         session.save_session(str(tmp_path), ref, runs["tc"],

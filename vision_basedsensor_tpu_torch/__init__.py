@@ -27,6 +27,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+# The fast_filters path's bfloat16 GEMMs accumulate in float32 and round
+# once at the end, as XLA's preferred_element_type=float32 does: no split-K
+# partial sums rounded to bfloat16.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

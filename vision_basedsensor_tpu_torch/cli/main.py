@@ -11,13 +11,17 @@ the pose-compensation loop:
   indent       staircase (probe indentation) evaluation on a video
   record       MJPEG stream -> .avi, the JPEG payloads muxed verbatim
   run-live     live MJPEG stream -> pipeline (+ --publish, --resume)
+  calibrate-intrinsics  chessboard images or corners -> IntrinsicParameters.xlsx
+  calibrate-extrinsics  world + pixel marker points -> ExtrinsicParameters.xlsx
+  synth        render a synthetic dome video (test data)
+  diameter     marker diameter validation (C19)
 
 The arguments are the reference's, spelled the same, so a user's scripts run
 unchanged. One option is new: ``--device {cuda,cpu}`` (before the
 subcommand, default ``cuda``), passed to every constructor; without a card
 and without ``--device cpu`` every command raises (``core/device.py``). The
-reference's other subcommands (calibration, ``synth``, ``serve``,
-``diameter``, ``bench``) are not registered here, so argparse refuses them.
+reference's ``serve`` and ``bench`` are not registered here, so argparse
+refuses them. ``--plots-dir`` and ``--plot`` need matplotlib.
 
 ``track --tpu-decode`` reads the video with ``MjpegAviCudaSource`` and
 ``run-live --tpu-decode`` the stream with ``MjpegCudaVideoSource`` (host
@@ -448,6 +452,217 @@ def cmd_record(args):
     return 0
 
 
+def _read_image(path: str):
+    """A still image as numpy: ``.npy`` loaded, anything else decoded by
+    ``io/video.py:decode_jpeg`` (cv2, else PIL); None where it does not
+    decode."""
+    if path.lower().endswith(".npy"):
+        return np.load(path)
+    from vision_basedsensor_tpu_torch.io.video import decode_jpeg
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read())
+
+
+def cmd_calibrate_intrinsics(args):
+    """Intrinsics from a directory of chessboard images (the reference's
+    C10 flow: crop, corners, Zhang; ``intrinsic_calibration.py:53-109``) or
+    from an npz of corners (``objs`` (V, N, 3), ``imgs`` (V, N, 2))."""
+    from vision_basedsensor_tpu_torch.calibrate import (CalibrationArtifact,
+                                                        calibrate_intrinsics)
+    cfg = _load_cfg(args)
+    if os.path.isdir(args.corners):
+        from vision_basedsensor_tpu_torch.calibrate.images import \
+            calibrate_from_images
+        images = []
+        for f in sorted(os.listdir(args.corners)):
+            if f.lower().endswith((".npy", ".png", ".jpg", ".jpeg", ".bmp")):
+                img = _read_image(os.path.join(args.corners, f))
+                if img is not None:
+                    images.append(img)
+        out = calibrate_from_images(
+            images, pattern_size=cfg.calibrate.pattern_size,
+            square_mm=cfg.calibrate.square_size_mm,
+            crop_ratios=cfg.crop_ratios if args.crop else None,
+            min_images=cfg.calibrate.min_images,
+            refine_iters=cfg.calibrate.refine_iters, device=args.device)
+        if out is None:
+            print("Insufficient valid images")
+            return 1
+        res, art = out.result, out.artifact
+        print(f"used {len(out.used_images)}/{len(images)} images")
+    else:
+        data = np.load(args.corners)
+        res = calibrate_intrinsics(data["objs"], data["imgs"],
+                                   refine_iters=cfg.calibrate.refine_iters,
+                                   device=args.device)
+        art = CalibrationArtifact(
+            fx=float(res.cam.fx), fy=float(res.cam.fy), cx=float(res.cam.cx),
+            cy=float(res.cam.cy), skew=0.0, dist=res.cam.dist.cpu().numpy(),
+            intrinsic_reproj_error=float(res.mean_reproj_error))
+    art.save_intrinsics_xlsx(args.output)
+    print(f"calibration RMS {float(res.mean_reproj_error):.4f} px -> "
+          f"{args.output}")
+    if args.plots_dir:
+        from vision_basedsensor_tpu_torch.calibrate.plots import \
+            plot_board_poses
+        os.makedirs(args.plots_dir, exist_ok=True)
+        path = os.path.join(args.plots_dir, "board_poses.png")
+        plot_board_poses(res.rvecs.cpu().numpy(), res.tvecs.cpu().numpy(),
+                         cfg.calibrate.pattern_size,
+                         cfg.calibrate.square_size_mm, path)
+        print(f"wrote {path}")
+
+
+def cmd_calibrate_extrinsics(args):
+    """Camera pose from the markers' world points (CSV marker_id,Xw,Yw,Zw)
+    and their pixels (CSV marker_id,u,v) by RANSAC PnP (reference C11)."""
+    import csv as _csv
+
+    import torch
+
+    from vision_basedsensor_tpu_torch.calibrate import (CalibrationArtifact,
+                                                        solve_pnp_ransac)
+    cfg = _load_cfg(args)
+    art = CalibrationArtifact.load_intrinsics_xlsx(args.intrinsics)
+
+    def read_pts(path, cols):
+        with open(path) as f:
+            rows = list(_csv.DictReader(f))
+        ids = [int(float(r["marker_id"])) for r in rows]
+        return ids, np.array([[float(r[c]) for c in cols] for r in rows])
+
+    wid, world = read_pts(args.world_points, ("Xw", "Yw", "Zw"))
+    pid, pix = read_pts(args.pixel_points, ("u", "v"))
+    common = sorted(set(wid) & set(pid))
+    obj = np.stack([world[wid.index(i)] for i in common])
+    img = np.stack([pix[pid.index(i)] for i in common])
+
+    res = solve_pnp_ransac(obj, img,
+                           art.to_camera(torch.float64, device=args.device),
+                           cfg.calibrate)
+    art.R_wc = res.R_wc.cpu().numpy()
+    art.T_wc = res.T_wc.cpu().numpy()
+    art.extrinsic_reproj_error = float(res.mean_reproj_error)
+    art.save_extrinsics_xlsx(args.output)
+    print(f"PnP solved with {int(res.num_inliers)} inliers")
+    print(f"Mean reprojection error: {float(res.mean_reproj_error):.3f} "
+          "pixels")
+    print(f"-> {args.output}")
+
+
+def cmd_synth(args):
+    """Render a synthetic dome video: the probe staircase or a cosine
+    wave of -Z displacement, saved as uint8 ``.npy``."""
+    import torch
+
+    from vision_basedsensor_tpu_torch.synth import (default_scene,
+                                                    indentation_staircase,
+                                                    render_frames)
+    scene = default_scene(args.height, args.width, device=args.device)
+    if args.motion == "staircase":
+        disp = indentation_staircase(frames_per_step=args.frames_per_step,
+                                     device=args.device)
+    else:
+        t = np.arange(args.frames, dtype=np.float32)
+        d = np.zeros((args.frames, 65, 3), np.float32)
+        d[:, :, 2] = -(1 - np.cos(t / 10.0))[:, None]
+        disp = torch.from_numpy(d).to(args.device)
+    frames = render_frames(scene, disp).to(torch.uint8).cpu().numpy()
+    np.save(args.output, frames)
+    print(f"wrote {args.output} {frames.shape}")
+
+
+def select_threshold_interactive(gray: "np.ndarray",
+                                 initial: int = 127) -> float:  # pragma: no cover
+    """cv2 trackbar picker for the binarization threshold — the reference's
+    interactive flow (DiameterValidation.py:76-111). Requires a display;
+    shows the inverted-binary preview live, ENTER/ESC accepts.
+    """
+    import cv2
+    win = "Threshold Selection (ENTER to accept)"
+    cv2.namedWindow(win, cv2.WINDOW_NORMAL)
+    state = {"thr": initial}
+
+    def on_change(v):
+        state["thr"] = v
+        _, binary = cv2.threshold(gray.astype(np.uint8), v, 255,
+                                  cv2.THRESH_BINARY_INV)
+        cv2.imshow(win, binary)
+
+    cv2.createTrackbar("Threshold", win, initial, 255, on_change)
+    on_change(initial)
+    while True:
+        key = cv2.waitKey(50) & 0xFF
+        if key in (13, 27):  # ENTER / ESC
+            break
+        if cv2.getWindowProperty(win, cv2.WND_PROP_VISIBLE) < 1:
+            break
+    cv2.destroyWindow(win)
+    return float(state["thr"])
+
+
+def cmd_diameter(args):
+    """Marker-diameter precision validation (reference C19): the scale
+    from a chessboard in the image (or ``--scale``), each marker's
+    diameter in mm."""
+    import torch
+
+    from vision_basedsensor_tpu_torch.analysis.diameter import (
+        chessboard_scale, measure_diameters)
+    from vision_basedsensor_tpu_torch.calibrate.chessboard import \
+        find_chessboard
+    from vision_basedsensor_tpu_torch.core.imaging import to_grayscale
+    img = _read_image(args.image)
+    if img is None:
+        raise ValueError(f"cannot decode {args.image}")
+    gray = to_grayscale(torch.as_tensor(img, device=args.device))
+    if args.interactive and args.threshold is None:  # pragma: no cover
+        args.threshold = select_threshold_interactive(gray.cpu().numpy())
+        print(f"[INFO] Selected threshold: {args.threshold:.0f}")
+
+    if args.scale:
+        scale = args.scale
+    else:
+        board = find_chessboard(gray, tuple(args.pattern), device=args.device)
+        if not board.found:
+            print("[ERROR] Chessboard not found; pass --scale px/mm instead")
+            return 1
+        scale = chessboard_scale(board.corners, tuple(args.pattern),
+                                 args.square_mm)
+        print(f"[INFO] Scale: {scale:.2f} px/mm from chessboard")
+
+    res = measure_diameters(gray, scale, threshold=args.threshold,
+                            diameter_offset_mm=args.offset,
+                            device=args.device)
+    valid = res.valid.cpu().numpy()
+    d = res.diameters_mm.cpu().numpy()[valid]
+    c = res.centers.cpu().numpy()[valid]
+    print("x,y,diameter_mm,circularity")
+    for (x, y), dd, cc in zip(c, d, res.circularity.cpu().numpy()[valid]):
+        print(f"{x:.1f},{y:.1f},{dd:.3f},{cc:.3f}")
+    print(f"# Mean Diameter: {d.mean():.3f} mm", file=sys.stderr)
+    print(f"# Std Deviation: {d.std():.3f} mm", file=sys.stderr)
+    if args.plot:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots(figsize=(10, 6))
+        ids = np.arange(1, len(d) + 1)
+        ax.bar(ids, d, color="skyblue", edgecolor="black", label="Measured")
+        ax.axhline(2.0, color="red", linestyle="--", label="Spec (2 mm)")
+        ax.set(title="Marker Diameter Analysis", xlabel="Marker ID",
+               ylabel="Diameter (mm)")
+        ax.text(0.98, 0.98, f"Count: {len(d)}\nMean: {d.mean():.2f} mm\n"
+                f"Std Dev: {d.std():.2f} mm", transform=ax.transAxes,
+                va="top", ha="right",
+                bbox=dict(facecolor="white", alpha=0.8))
+        ax.legend()
+        fig.tight_layout()
+        fig.savefig(args.plot, dpi=150)
+        plt.close(fig)
+        print(f"wrote {args.plot}")
+
+
 def cmd_run_live(args):
     """Consume a live MJPEG stream through the pipeline, printing each
     chunk's tracking and, with ``--publish``, serving the last frame's
@@ -559,6 +774,23 @@ def main(argv=None):
     t.add_argument("--extrinsics")
     t.set_defaults(fn=cmd_track)
 
+    ci = sub.add_parser("calibrate-intrinsics")
+    ci.add_argument("corners",
+                    help="npz with objs (V,N,3) + imgs (V,N,2), OR a "
+                         "directory of chessboard images (png/jpg/npy)")
+    ci.add_argument("--output", default="IntrinsicParameters.xlsx")
+    ci.add_argument("--crop", action="store_true",
+                    help="apply the pipeline crop ratios before detection")
+    ci.add_argument("--plots-dir")
+    ci.set_defaults(fn=cmd_calibrate_intrinsics)
+
+    ce = sub.add_parser("calibrate-extrinsics")
+    ce.add_argument("intrinsics")
+    ce.add_argument("world_points", help="CSV marker_id,Xw,Yw,Zw")
+    ce.add_argument("pixel_points", help="CSV marker_id,u,v")
+    ce.add_argument("--output", default="ExtrinsicParameters.xlsx")
+    ce.set_defaults(fn=cmd_calibrate_extrinsics)
+
     r = sub.add_parser("reconstruct")
     r.add_argument("tracking_csv")
     r.add_argument("--output", default="marker_3d_coordinates.csv")
@@ -629,6 +861,30 @@ def main(argv=None):
     rec.add_argument("--fps", type=float, default=12.0)
     rec.add_argument("--max-frames", type=int)
     rec.set_defaults(fn=cmd_record)
+
+    s = sub.add_parser("synth")
+    s.add_argument("--output", default="synthetic.npy")
+    s.add_argument("--motion", default="staircase",
+                   choices=["staircase", "wave"])
+    s.add_argument("--frames", type=int, default=60)
+    s.add_argument("--frames-per-step", type=int, default=1)
+    s.add_argument("--height", type=int, default=480)
+    s.add_argument("--width", type=int, default=640)
+    s.set_defaults(fn=cmd_synth)
+
+    dm = sub.add_parser("diameter", help="marker diameter validation (C19)")
+    dm.add_argument("image")
+    dm.add_argument("--pattern", type=int, nargs=2, default=[6, 6])
+    dm.add_argument("--square-mm", type=float, default=3.0)
+    dm.add_argument("--scale", type=float, help="px/mm (skip chessboard)")
+    dm.add_argument("--threshold", type=float,
+                    help="binary threshold (default Otsu)")
+    dm.add_argument("--interactive", action="store_true",
+                    help="pick the threshold with a cv2 trackbar (needs a "
+                         "display)")
+    dm.add_argument("--offset", type=float, default=0.0)
+    dm.add_argument("--plot")
+    dm.set_defaults(fn=cmd_diameter)
 
     rl = sub.add_parser("run-live", help="process a live MJPEG stream")
     rl.add_argument("url")

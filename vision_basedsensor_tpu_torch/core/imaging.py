@@ -4,7 +4,8 @@ Port of ``vision_basedsensor_tpu/core/imaging.py``. Images are ``(..., H, W)``
 float32 tensors (values 0..255 for 8-bit sources). Separable filters stay
 dense banded matmuls with the border handling folded into the band matrix,
 so the port rounds exactly where the reference rounds; the matmuls run in
-full float32 (the package turns TF32 off).
+full float32 (the package turns TF32 off), or with ``compute_dtype=
+torch.bfloat16`` as the reference's ``fast_filters`` path.
 """
 from __future__ import annotations
 
@@ -64,40 +65,73 @@ def _band_matrix_np(taps: tuple, n: int, mode: str) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _band_matrix(taps: tuple, n: int, mode: str,
-                 device: torch.device) -> torch.Tensor:
-    """The band matrix as a float32 tensor, cached per device and size."""
-    return torch.from_numpy(_band_matrix_np(taps, n, mode)).to(device)
+def _band_matrix(taps: tuple, n: int, mode: str, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The band matrix as a ``dtype`` tensor, cached per device, size and
+    dtype (a bfloat16 matrix is the float32 one rounded once)."""
+    return torch.from_numpy(_band_matrix_np(taps, n, mode)).to(device, dtype)
 
 
-def _sep_filter(x: torch.Tensor, taps_h, taps_w, mode: str) -> torch.Tensor:
-    """Separable filter along (H, W) as two float32 matmuls."""
+def _sep_filter(x: torch.Tensor, taps_h, taps_w, mode: str,
+                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Separable filter along (H, W) as two matmuls; float32 output.
+
+    ``compute_dtype=torch.bfloat16`` is the reference's ``fast_filters``
+    path (``core/imaging.py:104-125`` there): ``x`` and both band matrices
+    are rounded to bfloat16, the H pass accumulates in float32 and its
+    output is rounded back to bfloat16, the W pass takes bfloat16 operands
+    and gives float32. On the card both passes are bfloat16 tensor-core
+    GEMMs with float32 accumulation, the W pass writing float32 directly
+    (``torch.mm(..., out_dtype=torch.float32)``, one 2-D GEMM over the
+    ``(B * H, W)`` rows). On the CPU the rounded operands are multiplied in
+    float32: a product of two bfloat16 values is exact in float32.
+    """
     h, w = x.shape[-2:]
     y = x.float()
+    if compute_dtype is None or compute_dtype == torch.float32:
+        if taps_h is not None:
+            Th = _band_matrix(tuple(float(t) for t in taps_h), h, mode, y.device)
+            y = torch.matmul(Th, y)
+        if taps_w is not None:
+            Tw = _band_matrix(tuple(float(t) for t in taps_w), w, mode, y.device)
+            y = torch.matmul(y, Tw.T)
+        return y
+    dt = compute_dtype
+    cuda = y.device.type == "cuda"
+    y = y.to(dt)
     if taps_h is not None:
-        Th = _band_matrix(tuple(float(t) for t in taps_h), h, mode, y.device)
-        y = torch.matmul(Th, y)
+        Th = _band_matrix(tuple(float(t) for t in taps_h), h, mode, y.device, dt)
+        # Accumulate in float32, round once to bfloat16 (the reference's
+        # ``.astype(dt)`` after the H pass).
+        y = (torch.matmul(Th, y) if cuda
+             else torch.matmul(Th.float(), y.float()).to(dt))
     if taps_w is not None:
-        Tw = _band_matrix(tuple(float(t) for t in taps_w), w, mode, y.device)
-        y = torch.matmul(y, Tw.T)
-    return y
+        Tw = _band_matrix(tuple(float(t) for t in taps_w), w, mode, y.device, dt)
+        rows = y.reshape(-1, w)
+        out = (torch.mm(rows, Tw.T, out_dtype=torch.float32) if cuda
+               else torch.mm(rows.float(), Tw.T.float()))
+        return out.reshape(y.shape)
+    return y.float()
 
 
 def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float,
-                  quantize: bool = False) -> torch.Tensor:
+                  quantize: bool = False,
+                  compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Separable Gaussian blur with BORDER_REFLECT_101, matching
     ``cv2.GaussianBlur(src, (k, k), sigma)``; ``quantize`` rounds like the
     reference's uint8 outputs."""
     k = gaussian_taps(ksize, sigma)
-    y = _sep_filter(x, k, k, "reflect101")
+    y = _sep_filter(x, k, k, "reflect101", compute_dtype)
     if quantize:
         y = torch.floor(y + 0.5)
     return y
 
 
-def conv_same_zero(x: torch.Tensor, kh, kw) -> torch.Tensor:
+def conv_same_zero(x: torch.Tensor, kh, kw,
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Separable 'same' convolution with zero padding along (H, W)."""
-    return _sep_filter(x, np.asarray(kh), np.asarray(kw), "zero")
+    return _sep_filter(x, np.asarray(kh), np.asarray(kw), "zero",
+                       compute_dtype)
 
 
 def _reduce_window_2d(x: torch.Tensor, ksize: int, fill: float) -> torch.Tensor:

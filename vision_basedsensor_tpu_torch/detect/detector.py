@@ -136,10 +136,6 @@ def detect_markers_and_scale(frames: torch.Tensor, cfg: DetectConfig,
     """Like :func:`detect_markers` but also returns the photometric axis
     calibration scalar used (measured from this batch when ``axis_scale``
     is None)."""
-    if cfg.fast_filters:
-        raise NotImplementedError(
-            "DetectConfig.fast_filters=True (bf16 filter matmuls) is not "
-            "ported; use the default float32 filters")
     gray = to_grayscale(frames, cfg.channel_order)
     if profile is None:
         profile = (cfg.low_res if gray.shape[-2] <= cfg.low_res_max_rows
@@ -148,9 +144,13 @@ def detect_markers_and_scale(frames: torch.Tensor, cfg: DetectConfig,
     if squeeze:
         gray = gray[None]
 
-    area = dog_area_mask(gray, profile, cfg.dog_offset).float()
+    # fast_filters: the filter GEMMs in bfloat16 with float32 accumulation
+    # (detector.py:157-161 of the reference).
+    fdt = torch.bfloat16 if cfg.fast_filters else None
+    area = dog_area_mask(gray, profile, cfg.dog_offset, fdt).float()
     ncc = normxcorr_gaussian(area, profile.template_size,
-                             profile.template_sigma, binary_input=True)
+                             profile.template_sigma, binary_input=True,
+                             compute_dtype=fdt)
     gray = gray.contiguous()
     h, w = gray.shape[-2:]
     if takes_fused_branch(cfg, h, w, profile):

@@ -32,9 +32,13 @@ def _box_count(h: int, w: int, ksize: int,
 
 def normxcorr_gaussian(image: torch.Tensor, ksize: int, sigma: float,
                        min_variance: float = 0.5,
-                       binary_input: bool = False) -> torch.Tensor:
+                       binary_input: bool = False,
+                       compute_dtype: torch.dtype | None = None
+                       ) -> torch.Tensor:
     """NCC of a 0/1 ``image`` ``(..., H, W)`` with a unit-sum Gaussian
-    template. Only ``binary_input=True`` is ported (the detector's call)."""
+    template. Only ``binary_input=True`` is ported (the detector's call).
+    ``compute_dtype`` as in ``core/imaging.py:_sep_filter``: in bfloat16
+    the filters' input ``raw - mu`` is rounded too, as in the reference."""
     if not binary_input:
         raise NotImplementedError(
             "normxcorr_gaussian(binary_input=False) is not ported; the "
@@ -48,8 +52,8 @@ def normxcorr_gaussian(image: torch.Tensor, ksize: int, sigma: float,
     n = float(ksize * ksize)
     ones = np.ones(ksize)
 
-    corr_g = conv_same_zero(image, g, g)
-    box1 = conv_same_zero(image, ones, ones)
+    corr_g = conv_same_zero(image, g, g, compute_dtype)
+    box1 = conv_same_zero(image, ones, ones, compute_dtype)
     # For 0/1 inputs raw^2 == raw: box(m^2) = (1 - 2 mu) box(raw) + mu^2 count
     # with box(raw) = box(m) + mu count.
     count = _box_count(image.shape[-2], image.shape[-1], ksize, image.device)

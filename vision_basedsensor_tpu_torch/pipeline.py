@@ -8,8 +8,7 @@ Port of ``vision_basedsensor_tpu/pipeline.py``:
 with the one-frame identity-assignment prologue (``initialize``), the batch
 entry points ``process_frames`` / ``run_video`` and the chunked, resumable
 ``StreamingPipeline`` (``run`` over a ``VideoSource`` through
-``io/video.py:device_feed``). ``DetectConfig.fast_filters=True`` raises
-``NotImplementedError`` (in the detector).
+``io/video.py:device_feed``).
 """
 from __future__ import annotations
 

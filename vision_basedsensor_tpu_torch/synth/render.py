@@ -1,8 +1,9 @@
 """Synthetic dome renderer.
 
 Port of ``vision_basedsensor_tpu/synth/render.py`` (``default_scene``,
-``render_frames``, and the displacement sequences ``indentation_staircase``
-and ``tilt_deviation_field``): the 65-marker dome is projected through the pinhole +
+``render_frames``, and the displacement fields ``indentation_staircase``,
+``probe_indentation_field``, ``membrane_indentation_field`` and
+``tilt_deviation_field``): the 65-marker dome is projected through the pinhole +
 distortion camera, each marker ball becomes an image-plane ellipse from the
 projection Jacobian (analytic here, ``jacfwd`` there) and is rasterized
 with ~1 px anti-aliased edges. The machine that runs the port may have no
@@ -115,6 +116,73 @@ def indentation_staircase(num_steps: int = 12, step_mm: float = 0.7,
     d = torch.zeros((steps.shape[0], layout.NUM_MARKERS, 3))
     d[:, :, 2] = -steps[:, None]
     return d.to(device)
+
+
+def probe_indentation_field(depth_mm: float, contact_xy=(0.0, 0.0),
+                            probe_radius_mm: float = 5.0,
+                            device=CUDA) -> torch.Tensor:
+    """Local deformation of a spherical probe pressed into the dome.
+
+    Physical analog of the reference's indentation rig (README.md:103-121):
+    markers inside the contact footprint follow the probe surface; outside it
+    the displacement decays smoothly (exponential skirt), instead of the
+    rigid -Z translation of :func:`indentation_staircase`. Returns ``(65, 3)``
+    -Z displacements (membrane tangential motion neglected), on ``device``
+    (the card by default).
+    """
+    table = layout.dome_layout()
+    r = np.hypot(table[:, 1] - contact_xy[0], table[:, 2] - contact_xy[1])
+    # Spherical probe cap: depth profile d(r) = depth - (R - sqrt(R^2 - r^2)).
+    inside = r < probe_radius_mm
+    sag = probe_radius_mm - np.sqrt(np.maximum(probe_radius_mm**2 - r**2, 0.0))
+    d_in = np.maximum(depth_mm - sag, 0.0)
+    # Footprint edge: radius where the probe meets the surface.
+    a = probe_radius_mm * np.sqrt(max(0.0, 1 - (1 - depth_mm / probe_radius_mm)**2)) \
+        if depth_mm < probe_radius_mm else probe_radius_mm
+    edge = np.maximum(depth_mm - (probe_radius_mm - np.sqrt(max(probe_radius_mm**2 - a**2, 0.0))), 0.0)
+    skirt = edge * np.exp(-(r - a) / max(probe_radius_mm, 1e-6))
+    dz = np.where(inside, d_in, skirt)
+    out = np.zeros((layout.NUM_MARKERS, 3), np.float32)
+    out[:, 2] = -dz
+    return torch.from_numpy(out).to(resolve(device))
+
+
+def membrane_indentation_field(depth_mm: float, contact_xy=(0.0, 0.0),
+                               probe_radius_mm: float = 5.0,
+                               tangential_frac: float = 0.3,
+                               device=CUDA) -> torch.Tensor:
+    """Probe indentation with membrane kinematics: normal sag PLUS radial
+    tangential flow.
+
+    :func:`probe_indentation_field` models the rig's -Z sag only
+    (README.md:103-121); a real elastomer membrane also stretches — material
+    under the probe is pushed radially outward, so markers translate in X/Y
+    too. Modeled as an axisymmetric outward flow that vanishes at the
+    contact centre, peaks at the contact edge ``r = a``, and decays outside:
+
+        u_r(r) = tangential_frac * depth * (r/a) * exp((1 - (r/a)^2) / 2)
+
+    (peak value ``tangential_frac * depth`` at ``r = a``; the Gaussian-decay
+    shape is the standard far-field of a point indentation on a stretched
+    membrane). This stresses full 3D displacement recovery — the reference
+    only ever validates Z (its rig prescribes pure -Z steps) while its
+    output schema carries dX/dY/dZ (``3d_reconstruction.py:296-307``).
+    Returns ``(65, 3)`` world displacements (mm) on ``device`` (the card
+    by default).
+    """
+    dz = probe_indentation_field(depth_mm, contact_xy, probe_radius_mm,
+                                 device="cpu").numpy()
+    table = layout.dome_layout()
+    rx = table[:, 1] - contact_xy[0]
+    ry = table[:, 2] - contact_xy[1]
+    r = np.hypot(rx, ry)
+    a = max(probe_radius_mm * np.sqrt(
+        max(0.0, 1 - (1 - depth_mm / probe_radius_mm) ** 2)), 1e-6) \
+        if depth_mm < probe_radius_mm else probe_radius_mm
+    u_r = tangential_frac * depth_mm * (r / a) * np.exp(0.5 * (1 - (r / a) ** 2))
+    safe_r = np.maximum(r, 1e-9)
+    out = np.stack([u_r * rx / safe_r, u_r * ry / safe_r, dz[:, 2]], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(resolve(device))
 
 
 def tilt_deviation_field(tilt_deg: float, axis: str = "y",
