@@ -8,6 +8,7 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
     python3 chip_smoke.py --only window_sums [--baseline WS_CU ...] [--out FILE]
     python3 chip_smoke.py --only gather [--baseline GATHER_CU ...]
                           [--probe CUT_CU ...] [--out FILE]
+    python3 chip_smoke.py --only multi [--out FILE]
 
 ``--only fields`` runs phases 1-2 and then the fields kernel alone: it
 checks the kernel against ``fused_fields_reference`` (exact equality) at
@@ -60,6 +61,10 @@ rate the card reaches for these bytes) and two probes of the first design
 (``csrc/gather_probes.cu``: its stores alone, its loads alone; timed, not
 checked); ``--probe`` adds other sources with the ``vbs_gather_windows``
 entry, timed but not checked.
+
+``--only multi`` runs phases 1-2 and then phase 11c alone (the ingest's
+first MULTI_FEED JPEGs rendered and encoded as phase 7 does): on a machine
+with several cards, the data-parallel step over all of them.
 
 Phases of the full run (any failure raises, so the script exits non-zero
 and prints no result line):
@@ -183,6 +188,32 @@ and prints no result line):
      within the method's bound (1.95 mm to 2.0 mm + 2 px), and at least 60
      valid with a 1024-candidate budget (the default budget of 96 is spent
      on tied plateau cells before the distance suppression).
+ 11. "serve, extras, multi-device": (a) the acquisition server
+     (capture/server.py run_server, synthetic, the CLI's 640x480 at 12 fps,
+     q70, port 0) consumed in-process: record SERVE[0] frames, each a
+     640x480 JPEG that the native decoder reads (no kernel); run-live
+     --tpu-decode --publish 0 over SERVE[1] frames at --batch SERVE[2],
+     65/65 markers in every frame, a finite tilt, /state equal to the last
+     chunk's payload, launches of exactly expand, fields, gather and scan;
+     the capture thread's render and encode ms per frame and the interval
+     between published frames beside the camera's 83 ms; the server's
+     threads ended after stop(). (b) ellipse_from_moments, box_sum and
+     normxcorr_gaussian(binary_input=False) on an EXTRAS_BATCH 640x480
+     batch and contact_signal on phase 4's reconstruction, each on the card
+     against the same call on the CPU within its stated tolerance, with no
+     kernel launched; StageTimer around one batch and profile_to's trace
+     holding the trace_annotation span. (c) the data-parallel step
+     (parallel/) over every visible card, or two shards in turn on one
+     card: the MULTI_BATCH 640x480 frames against single-device
+     process_frames (seen equal, world and cum_path within 1e-4,
+     detections as sets), fields and gather once a shard and one scan, only
+     the marker tables copied between shard and gather device (bytes
+     printed); with_carry in two chunks; sequential association on phase
+     6's undistorted stream; ShardedPackedFeed over the ingest's first
+     MULTI_FEED JPEGs for tdelta, split and packed, bitwise equal to the
+     single-device decode with the expand kernel launched once a decode
+     call a shard; sharded fps beside single-device fps (median of four, in
+     turns).
 The line before the last is the kernels' JSON record (each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
@@ -204,6 +235,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # The main path's runs: (label, rows, cols, batch, max_candidates, backend).
 # The first two are the reference's bench sizes (bench.py:99-119,476 and
@@ -241,6 +273,15 @@ CAL_VIEWS, CAL_SQUARE_MM = 20, 3.0
 CAL_K = ((600.0, 0.0, 322.0), (0.0, 590.0, 238.0), (0.0, 0.0, 1.0))
 PNP_POSE = ((0.12, -0.2, 0.05), (1.5, -2.0, 42.0))
 DIAMETER_PX_PER_MM = 15.0
+# Phase 11, serve, extras and multi-device: the frames record takes and
+# run-live reads from the acquisition server, and run-live's --batch; the
+# extras' batch (640x480); the data-parallel run's batch (phase 4's 640x480
+# B=1024) and the JPEGs ShardedPackedFeed decodes (one drift period of the
+# ingest).
+SERVE = (32, 64, 32)
+EXTRAS_BATCH = 64
+MULTI_BATCH = 1024
+MULTI_FEED = 256
 # --only fields: (rows, cols, batches), each batch the first frames of one
 # render, so the 64-frame inputs are the first 64 of the 1024.
 ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
@@ -501,11 +542,12 @@ def main(argv=None) -> None:
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
     ap.add_argument("--only", choices=("fields", "expand", "window_sums",
-                                       "gather"),
+                                       "gather", "multi"),
                     default=None,
                     help="check and time only the fields kernel, the "
                          "sorted-expand kernel, the window-sums kernel or the "
-                         "window-gather kernel")
+                         "window-gather kernel, or run only the data-parallel "
+                         "step (phase 11c)")
     ap.add_argument("--baseline", action="append", default=None,
                     help="with --only: another version of that kernel's "
                          "source to check and time in turns with the current "
@@ -516,8 +558,9 @@ def main(argv=None) -> None:
                          "else (a cut of a design), timed in turns but not "
                          "checked (repeatable)")
     args = ap.parse_args(argv)
-    if args.baseline and args.only is None:
-        ap.error("--baseline needs --only")
+    if args.baseline and args.only in (None, "multi"):
+        ap.error("--baseline needs --only fields, expand, window_sums or "
+                 "gather")
     if args.probe and args.only not in ("window_sums", "gather"):
         ap.error("--probe needs --only window_sums or --only gather")
 
@@ -534,7 +577,8 @@ def main(argv=None) -> None:
     from vision_basedsensor_tpu_torch.core.imaging import band_and_opening
     from vision_basedsensor_tpu_torch.detect import detector
     from vision_basedsensor_tpu_torch.ops import moments as tm
-    from vision_basedsensor_tpu_torch.ops.cuda import build
+    from vision_basedsensor_tpu_torch.ops.cuda import (build, launch_counts,
+                                                       reset_launch_counts)
     from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
     from vision_basedsensor_tpu_torch.ops.cuda import fields as kf
     from vision_basedsensor_tpu_torch.ops.cuda import moments as kg
@@ -578,20 +622,6 @@ def main(argv=None) -> None:
 
     cfg = PipelineConfig(reconstruct=ReconstructConfig(warmup_frames=0))
     dcfg = cfg.detect
-    counters = ((kf, "fields_launches", "fields"),
-                (kg, "gather_launches", "gather"),
-                (kw, "fields_launches", "window_sums"),
-                (kw, "packed_launches", "window_sums_packed"),
-                (kx, "launches", "expand_sorted"),
-                (kscan, "scan_launches", "scan"),
-                (kscan, "assoc_launches", "associate"))
-
-    def reset_counts():
-        for mod, attr, _ in counters:
-            setattr(mod, attr, 0)
-
-    def read_counts() -> dict:
-        return {name: getattr(mod, attr) for mod, attr, name in counters}
 
     def profile_of(h):
         return dcfg.low_res if h <= dcfg.low_res_max_rows else dcfg.high_res
@@ -870,13 +900,13 @@ def main(argv=None) -> None:
         process_frames(frames[:2], ref, cam, run_cfg)
         torch.cuda.synchronize()
 
-        reset_counts()
+        reset_launch_counts()
         t = time.perf_counter()
         ref = initialize(frames[0], run_cfg)
         out = process_frames(frames, ref, cam, run_cfg)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t
-        launches = read_counts()
+        launches = launch_counts()
         rec["launches"] = launches
         print(f"{label}: main path ran in {first_s:.3f} s (first counted "
               f"run); launches {launches} [{card}]", flush=True)
@@ -1076,11 +1106,11 @@ def main(argv=None) -> None:
         ref16 = initialize(frames[0], cfg16)          # warm-up, not counted
         process_frames(frames[:2], ref16, cam, cfg16)
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         ref16 = initialize(frames[0], cfg16)
         out16 = process_frames(frames, ref16, cam, cfg16)
         torch.cuda.synchronize()
-        launches = rec["launches"] = read_counts()
+        launches = rec["launches"] = launch_counts()
         expect = {"fields", "gather", "scan"}
         if (any((n > 0) != (k in expect) for k, n in launches.items())
                 or launches["scan"] != 1):
@@ -1382,14 +1412,14 @@ def main(argv=None) -> None:
         StreamingPipeline(scene.cam, scfg, device=dev).process(frames[:chunk])
         torch.cuda.synchronize()                             # warm-up
         rec: dict = {"frames": n, "chunk": chunk, "dist": list(dist)}
-        reset_counts()
+        reset_launch_counts()
         outs = chunked_run()
         torch.cuda.synchronize()
-        rec["launches_chunked"] = read_counts()
-        reset_counts()
+        rec["launches_chunked"] = launch_counts()
+        reset_launch_counts()
         bref, bout = batch_run()
         torch.cuda.synchronize()
-        rec["launches_batch"] = read_counts()
+        rec["launches_batch"] = launch_counts()
         print(f"stream: launches chunked {rec['launches_chunked']}, batch "
               f"{rec['launches_batch']} [{card}]", flush=True)
         expect = ("fields", "gather", "scan", "associate")
@@ -1603,7 +1633,7 @@ def main(argv=None) -> None:
                rec["plain_ms"], rec["bound"], rec["library_ms"])
         return rec
 
-    live_jpegs: list = []          # the ingest's first JPEGs, for phase 9
+    live_jpegs: list = []     # the ingest's first JPEGs, for phases 9, 11
 
     def ingest_phase():
         """The production MJPEG ingest: host entropy decode, the four device
@@ -1624,7 +1654,7 @@ def main(argv=None) -> None:
         # once, mux its JPEGs n / period times.
         scene, jpegs, rec["encode_ms_per_frame"] = encode_period(period,
                                                                  quality)
-        live_jpegs[:] = jpegs[:max(LIVE[0], REQUEST[1])]
+        live_jpegs[:] = jpegs[:max(LIVE[0], REQUEST[1], MULTI_FEED)]
         h, w = 480, 640
         rec["jpeg_bytes_per_frame"] = sum(map(len, jpegs)) / period
         print(f"ingest: encoded {period} {w}x{h} frames at q{quality} with the "
@@ -1740,12 +1770,12 @@ def main(argv=None) -> None:
             StreamingPipeline(scene.cam, cfg, device=dev).process(
                 decoded[0][:2])
             torch.cuda.synchronize()                         # warm-up
-            reset_counts()
+            reset_launch_counts()
             t = time.perf_counter()
             outs = run_pass()
             torch.cuda.synchronize()
             rec["run_first_s"] = time.perf_counter() - t
-            rec["launches"] = launches = read_counts()
+            rec["launches"] = launches = launch_counts()
             print(f"ingest: StreamingPipeline.run over {n} frames in "
                   f"{rec['run_first_s']:.3f} s (first counted run); launches "
                   f"{launches} [{card}]", flush=True)
@@ -1812,13 +1842,13 @@ def main(argv=None) -> None:
         from vision_basedsensor_tpu_torch.cli import main as cli
         out, err = io.StringIO(), io.StringIO()
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         t = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             cli.main(argv)
         torch.cuda.synchronize()
         s = time.perf_counter() - t
-        launches = launches_of[name] = read_counts()
+        launches = launches_of[name] = launch_counts()
         if any((v > 0) != (k in expect) for k, v in launches.items()):
             raise AssertionError(f"{phase} {name}: expected launches of "
                                  f"exactly {sorted(expect)}, got {launches}")
@@ -2103,10 +2133,10 @@ def main(argv=None) -> None:
             reconstruct=ReconstructConfig(warmup_frames=0),
             track=TrackConfig(association_mode="frame0"))
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         out = run_video(frames, scene.cam, mcfg, apply_warmup=False)
         torch.cuda.synchronize()
-        launches = rec["launches"]["membrane run_video"] = read_counts()
+        launches = rec["launches"]["membrane run_video"] = launch_counts()
         expect = {"fields", "gather", "scan"}
         if any((n > 0) != (k in expect) for k, n in launches.items()):
             raise AssertionError(f"calibrate: membrane run_video launched "
@@ -2279,6 +2309,495 @@ def main(argv=None) -> None:
         rec["phase_s"] = time.perf_counter() - t_phase
         print(f"calibrate: phase {rec['phase_s']:.1f} s [{card}]",
               flush=True)
+        return rec
+
+    def serve_phase(workdir):
+        """Phase 11a: the acquisition server (run_server, synthetic, the
+        CLI's 640x480 at 12 fps, q70) consumed in-process by record and
+        run-live --tpu-decode --publish 0; the capture thread's render and
+        encode ms per frame and the interval between published frames."""
+        import urllib.request
+
+        from vision_basedsensor_tpu_torch.capture import run_server
+        from vision_basedsensor_tpu_torch.capture import server as cserver
+        from vision_basedsensor_tpu_torch.config import CaptureConfig
+        from vision_basedsensor_tpu_torch.io import publish
+        from vision_basedsensor_tpu_torch.io.mjpeg import sof_dims
+        from vision_basedsensor_tpu_torch.io.video import \
+            _iter_avi_video_chunks
+
+        n_rec, n_live, batch = SERVE
+        cap = CaptureConfig(port=0)
+        rec: dict = {"launches": {}, "width": cap.width, "height": cap.height,
+                     "fps": cap.fps, "quality": cap.jpeg_quality,
+                     "frame_budget_ms": 1e3 / cap.fps}
+        renders, encodes, published = [], [], []
+        read, encode = cserver.SyntheticCamera.read, cserver._encode_jpeg
+
+        def read_spy(self):
+            t = time.perf_counter()
+            f = read(self)
+            renders.append(1e3 * (time.perf_counter() - t))
+            return f
+
+        def encode_spy(frame, quality):
+            t = time.perf_counter()
+            jb = encode(frame, quality)
+            encodes.append(1e3 * (time.perf_counter() - t))
+            published.append(time.perf_counter())
+            return jb
+
+        cserver.SyntheticCamera.read = read_spy
+        cserver._encode_jpeg = encode_spy
+        captured, served, payloads = [], [], []
+        process = StreamingPipeline.process
+        update = publish.StatePublisher.update
+
+        def process_spy(self, frames):
+            out = process(self, frames)
+            captured.append(out)
+            return out
+
+        def update_spy(self, state):
+            update(self, state)
+            payloads.append(state)
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.port}/state",
+                                        timeout=30) as r:
+                served.append(json.loads(r.read()))
+
+        srv = run_server(cap, synthetic=True, block=False, device=dev)
+        try:
+            url = f"http://127.0.0.1:{srv.port}/stream"
+            t0 = time.perf_counter()
+            while srv.camera.frame is None and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+            avi = os.path.join(workdir, "served.avi")
+            _, rec["record_s"], _ = run_command(
+                "serve", "record", ["record", url, avi, "--max-frames",
+                                    str(n_rec)], set(), rec["launches"])
+            StreamingPipeline.process = process_spy
+            publish.StatePublisher.update = update_spy
+            try:
+                text, rec["run_live_s"], _ = run_command(
+                    "serve", "run-live --tpu-decode",
+                    ["run-live", url, "--tpu-decode", "--publish", "0",
+                     "--batch", str(batch), "--max-frames", str(n_live)],
+                    {"expand_sorted", "fields", "gather", "scan"},
+                    rec["launches"])
+            finally:
+                StreamingPipeline.process = process
+                publish.StatePublisher.update = update
+        finally:
+            srv.stop()
+            cserver.SyntheticCamera.read = read
+            cserver._encode_jpeg = encode
+        alive = [t.name for t in srv._threads if t.is_alive()]
+        if alive:
+            raise AssertionError(f"serve: threads still running after "
+                                 f"stop(): {alive}")
+
+        # The recording: valid 640x480 JPEGs that the native decoder reads.
+        with open(avi, "rb") as f:
+            got = list(_iter_avi_video_chunks(f.read()))
+        if len(got) != n_rec or any(sof_dims(j) != (cap.width, cap.height)
+                                    for j in got):
+            raise AssertionError(f"serve: recorded {len(got)} frames of "
+                                 f"{ {sof_dims(j) for j in got} }")
+        dec = tj.MjpegBatchDecoder(device=dev)
+        x = dec.tdelta_to_device(dec.entropy_decode_tdelta(got))
+        if (tuple(x.shape) != (n_rec, cap.height, cap.width)
+                or not bool(torch.isfinite(x).all())):
+            raise AssertionError(f"serve: decoded {tuple(x.shape)}")
+        rec["recorded_distinct"] = len(set(got))
+
+        # run-live: 65/65 markers every frame, finite tilt, /state.
+        tracked = torch.cat([o.tracked.valid for o in captured]).sum(-1)
+        tilt = torch.cat([o.contact.tilt_deg for o in captured])
+        if (len(captured) != -(-n_live // batch) or int(tracked.numel())
+                != n_live or "skipped" in text):
+            raise AssertionError(f"serve: run-live ran {len(captured)} "
+                                 f"chunks, {tracked.numel()} frames:\n{text}")
+        if int(tracked.min()) != 65 or not bool(torch.isfinite(tilt).all()):
+            raise AssertionError(f"serve: tracked min {int(tracked.min())}, "
+                                 f"tilt finite {bool(torch.isfinite(tilt).all())}")
+        last = publish.contact_state_payload(captured[-1].contact, -1, n_live)
+        if payloads[-1] != last or served[-1] != dict(last,
+                                                      seq=len(captured)):
+            raise AssertionError(f"serve: /state served {served[-1]}, the "
+                                 f"last chunk's payload is {last}")
+        # The port's numpy encoder on the served frames (the server takes
+        # cv2 where this host has it).
+        from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
+        cam = cserver.SyntheticCamera(cap, default_scene(cap.height,
+                                                         cap.width,
+                                                         device=dev))
+        grays = [cam.read()[..., 0] for _ in range(8)]
+        t = time.perf_counter()
+        for g in grays:
+            encode_jpeg(g, cap.jpeg_quality)
+        rec["numpy_encode_ms"] = 1e3 * (time.perf_counter() - t) / len(grays)
+        gaps = [1e3 * (b - a) for a, b in zip(published, published[1:])]
+        rec.update(tracked_min=int(tracked.min()),
+                   tilt_deg=[float(tilt.min()), float(tilt.max())],
+                   state=served[-1],
+                   render_ms=statistics.median(renders),
+                   encode_ms=statistics.median(encodes),
+                   published_interval_ms=statistics.median(gaps),
+                   renders=len(renders), published=len(published),
+                   jpeg_bytes=sum(map(len, got)) / len(got))
+        print(f"serve: record {n_rec} frames, {rec['recorded_distinct']} "
+              f"distinct, each a {cap.width}x{cap.height} JPEG the native "
+              f"decoder reads; run-live --tpu-decode --publish over {n_live} "
+              f"frames in chunks of {batch}: tracked per frame min "
+              f"{rec['tracked_min']}, tilt {rec['tilt_deg']} deg, /state "
+              f"{served[-1]}; server threads ended [{card}]", flush=True)
+        print(f"serve: capture thread per frame (median): render "
+              f"{rec['render_ms']:.2f} ms on the card, encode "
+              f"{rec['encode_ms']:.2f} ms ("
+              f"{'cv2' if cserver._video._cv2() else 'the numpy encoder'} "
+              f"on this host, {rec['jpeg_bytes']:.0f} B; the port's numpy "
+              f"encoder {rec['numpy_encode_ms']:.2f} ms), published every "
+              f"{rec['published_interval_ms']:.1f} ms with skip_frames "
+              f"{cap.skip_frames}, beside the camera's "
+              f"{rec['frame_budget_ms']:.1f} ms at {cap.fps} fps "
+              f"({len(published)} published, {len(renders)} renders) "
+              f"[{card}]", flush=True)
+        return rec
+
+    def extras_phase(workdir, recon4):
+        """Phase 11b: the library extras on the card against the same calls
+        on the CPU, with no kernel launched; StageTimer around one batch
+        and profile_to's trace of a trace_annotation span."""
+        from vision_basedsensor_tpu_torch.analysis.dynamics import \
+            contact_signal
+        from vision_basedsensor_tpu_torch.core.fit import ellipse_from_moments
+        from vision_basedsensor_tpu_torch.core.imaging import box_sum
+        from vision_basedsensor_tpu_torch.pipeline import _to
+        from vision_basedsensor_tpu_torch.utils import (StageTimer,
+                                                        trace_annotation)
+        from vision_basedsensor_tpu_torch.utils.profiling import profile_to
+
+        b = EXTRAS_BATCH
+        scene, frames = render(480, 640, b)
+        # A second input for the continuous NCC: the stream's distorted
+        # camera (phase 6).
+        _, frames_dist = render(480, 640, b, dist=np.asarray(STREAM[2]))
+        cpu = torch.device("cpu")
+        ys, xs = torch.meshgrid(torch.arange(480.0, device=dev),
+                                torch.arange(640.0, device=dev),
+                                indexing="ij")
+        # Dark marker pixels as weights over each frame's pixels.
+        wts = ((frames < 115).float().reshape(b, -1), xs.reshape(-1),
+               ys.reshape(-1))
+        prof = dcfg.low_res
+        calls = {
+            # name: (function of a device, tolerance as (rtol, atol))
+            "ellipse_from_moments": (lambda d: ellipse_from_moments(
+                *(t.to(d) for t in wts)), (1e-4, 1e-3)),
+            "box_sum": (lambda d: box_sum(frames.to(d), 9), (1e-5, 1e-2)),
+            # The local variance box(m^2) - box(m)^2 / n cancels: box(m^2)
+            # reaches ~1e6 on 0..255 frames, so float32 filter sums in
+            # another order (cuBLAS, the CPU's GEMM) move var_n by ~0.1 and
+            # a score by up to ~0.1 / (2 var_n) above the 0.5 floor. The
+            # reference holds this path to its FFT oracle within 2e-3 on
+            # 0/1 masks (tests/test_ops.py:29-39).
+            "normxcorr_gaussian(binary_input=False)": (
+                lambda d: normxcorr_gaussian(
+                    frames.to(d), prof.template_size, prof.template_sigma,
+                    binary_input=False), (0.0, 1e-2)),
+            "normxcorr_gaussian(binary_input=False), distorted camera": (
+                lambda d: normxcorr_gaussian(
+                    frames_dist.to(d), prof.template_size,
+                    prof.template_sigma, binary_input=False), (0.0, 1e-2)),
+            "contact_signal": (lambda d: contact_signal(_to(recon4, d)),
+                               (1e-5, 1e-5)),
+        }
+        rec: dict = {"batch": b, "checks": {}}
+        for name, (fn, (rtol, atol)) in calls.items():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = fn(dev)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = fn(cpu)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err, worst = 0.0, 0.0
+            for a, w in zip(got, want):
+                a, w = a.cpu().double(), w.double()
+                d = (a - w).abs()
+                err = max(err, float(d.max()))
+                worst = max(worst, float((d - atol - rtol * w.abs()).max()))
+            rec["checks"][name] = {"max_abs_err": err, "rtol": rtol,
+                                   "atol": atol, "launches": launches}
+            print(f"extras: {name} on the card vs the CPU: max abs err {err} "
+                  f"(rtol {rtol}, atol {atol}); launches {launches} "
+                  f"[{card}]", flush=True)
+            if worst > 0 or any(launches.values()):
+                raise AssertionError(f"extras: {name} beyond its tolerance "
+                                     f"or launched a kernel")
+        ref = initialize(frames[0], cfg)
+        process_frames(frames, ref, scene.cam, cfg)           # warm-up
+        timer = StageTimer()
+        logdir = os.path.join(workdir, "trace")
+        held: list = []       # block_on is read when the stage ends
+        with profile_to(logdir) as prof_:
+            with trace_annotation("vbs.process_frames"):
+                with timer.stage("process_frames", block_on=held):
+                    held.append(process_frames(frames, ref, scene.cam, cfg))
+        with open(os.path.join(logdir, "trace.json")) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        dev_ms = sum(e.device_time_total for e in prof_.key_averages()) / 1e3
+        rec.update(stage_ms=1e3 * timer.totals["process_frames"],
+                   trace_has_annotation="vbs.process_frames" in names,
+                   trace_device_ms=dev_ms)
+        print(f"extras: StageTimer (one {b}-frame batch, under the "
+              f"profiler): {timer.report()}; profile_to wrote "
+              f"{os.path.getsize(os.path.join(logdir, 'trace.json'))} B with "
+              f"the span {'vbs.process_frames' in names}, device time "
+              f"{dev_ms:.2f} ms [{card}]", flush=True)
+        if "vbs.process_frames" not in names or dev_ms <= 0:
+            raise AssertionError("extras: the trace lacks the annotation or "
+                                 "device time")
+        return rec
+
+    def detections_as_sets(a, b, what, tol=1e-3):
+        """Each frame's valid detections of ``a`` and ``b`` as sets: equal
+        counts, and each of ``b``'s within ``tol`` px of one of ``a``'s
+        (equal scores may order slots differently)."""
+        if not torch.equal(a.valid.sum(-1), b.valid.sum(-1)):
+            raise AssertionError(f"{what}: valid counts differ")
+        # The exact distances: cdist's matmul form loses ~0.1 px to
+        # cancellation at coordinates of a few hundred.
+        d = torch.cdist(b.xy, a.xy,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        d = torch.where(a.valid[:, None, :], d, torch.full_like(d, 1e9))
+        near = d.min(-1).values[b.valid]
+        dmax = float(near.max()) if near.numel() else 0.0
+        if dmax > tol:
+            raise AssertionError(f"{what}: a detection {dmax} px from its "
+                                 "nearest")
+        return dmax
+
+    def multi_phase():
+        """Phase 11c: the data-parallel step (parallel/) over every visible
+        card, or two shards on one card, against single-device
+        process_frames; with_carry in two chunks; sequential association on
+        the undistorted stream; ShardedPackedFeed per transport; fps in
+        turns."""
+        from vision_basedsensor_tpu_torch.detect.detector import Detections
+        from vision_basedsensor_tpu_torch.parallel import (
+            ShardedPackedFeed, make_mesh, make_sharded_pipeline, shard_frames)
+        from vision_basedsensor_tpu_torch.reconstruct.displacement import \
+            initial_carry
+
+        n_dev = torch.cuda.device_count()
+        mesh = make_mesh() if n_dev >= 2 else make_mesh([dev, dev])
+        n_sh = len(mesh.devices)
+        rec: dict = {"device_count": n_dev,
+                     "mesh": [str(d) for d in mesh.devices]}
+        print(f"multi: torch.cuda.device_count() {n_dev}; mesh "
+              f"{rec['mesh']} ({'every visible card' if n_dev >= 2 else 'two shards in turn on one card'}) "
+              f"[{card}]", flush=True)
+        det_names = {f"detections.{k}" for k in Detections._fields}
+
+        def close(out, base, what):
+            if not torch.equal(out.recon.seen, base.recon.seen):
+                raise AssertionError(f"{what}: seen differs")
+            errs = {k: float((getattr(out.recon, k)
+                              - getattr(base.recon, k)).abs().max())
+                    for k in ("world", "cum_path")}
+            if max(errs.values()) > 1e-4:
+                raise AssertionError(f"{what}: beyond 1e-4: {errs}")
+            return errs
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, launch_counts()
+
+        def expect(counts, what, **want):
+            bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+            if bad:
+                raise AssertionError(f"{what}: launches {counts}, expected "
+                                     f"{want}")
+
+        # -- the main path's batch -------------------------------------------
+        b = MULTI_BATCH
+        scene, frames = render(480, 640, b)
+        ref = initialize(frames[0], cfg)
+        base = process_frames(frames, ref, scene.cam, cfg)
+        step = make_sharded_pipeline(mesh, scene.cam, cfg)
+        step(shard_frames(frames[:2 * n_sh], mesh), ref)    # warm-up
+        out, counts = counted(lambda: step(shard_frames(frames, mesh), ref))
+        expect(counts, "multi", fields=n_sh, gather=n_sh, scan=1)
+        per_shard = step.last_shard_launches
+        if any((c["fields"], c["gather"]) != (1, 1) or
+               sum(c.values()) != 2 for c in per_shard):
+            raise AssertionError(f"multi: per-shard launches {per_shard}")
+        errs = close(out, base, "multi")
+        dxy = detections_as_sets(out.detections, base.detections,
+                                 "multi detections")
+        names = {t["name"] for t in step.last_transfers}
+        if not names <= det_names | {"ref.axis_scale"}:
+            raise AssertionError(f"multi: transfers {names}")
+        moved = {}
+        for t in step.last_transfers:
+            moved[t["name"]] = moved.get(t["name"], 0) + t["bytes"]
+        tracked = out.tracked.valid.sum(-1)
+        if int(tracked.min()) != 65:
+            raise AssertionError(f"multi: tracked min {int(tracked.min())}")
+        rec.update(batch=b, launches=counts, per_shard=per_shard,
+                   max_abs_err=errs, detections_max_px=dxy,
+                   transfer_bytes=moved,
+                   transfer_total=sum(moved.values()),
+                   frame_bytes=frames.numel() * frames.element_size())
+        print(f"multi: {b}x480x640 over {n_sh} shards == process_frames "
+              f"(seen equal, max |d| {errs}, detections as sets within "
+              f"{dxy} px), 65/65 markers; launches {counts}, per shard "
+              f"{per_shard}; the only copies between shard and gather "
+              f"device: {moved} = {rec['transfer_total']} B "
+              f"(the frames: {rec['frame_bytes']} B) [{card}]", flush=True)
+
+        # -- with_carry, two chunks ------------------------------------------
+        stepc = make_sharded_pipeline(mesh, scene.cam, cfg, with_carry=True)
+        half = b // 2
+        o1, carry = stepc(shard_frames(frames[:half], mesh), ref,
+                          initial_carry(65, device=dev))
+        o2, _ = stepc(shard_frames(frames[half:], mesh), ref, carry)
+        cum = torch.cat([o1.recon.cum_path, o2.recon.cum_path])
+        seen = torch.cat([o1.recon.seen, o2.recon.seen])
+        cerr = float((cum - base.recon.cum_path).abs().max())
+        if (not torch.equal(seen, base.recon.seen) or cerr > 1e-4
+                or stepc.frames_seen != b):
+            raise AssertionError(f"multi with_carry: cum_path {cerr}, "
+                                 f"frames_seen {stepc.frames_seen}")
+        rec["with_carry_cum_err"] = cerr
+        print(f"multi: with_carry in two chunks of {half} == one batch "
+              f"(cum_path max |d| {cerr}, frames_seen {stepc.frames_seen})",
+              flush=True)
+
+        # -- fps in turns ------------------------------------------------------
+        def single():
+            process_frames(frames, ref, scene.cam, cfg)
+
+        def sharded():
+            step(shard_frames(frames, mesh), ref)
+
+        s_1 = _wall_s(single, 2)
+        s_n = _wall_s(sharded, 2)
+        s_n += _wall_s(sharded, 2)
+        s_1 += _wall_s(single, 2)
+        rec.update(fps_single=b / statistics.median(s_1),
+                   fps_sharded=b / statistics.median(s_n),
+                   s_single=s_1, s_sharded=s_n)
+        print(f"multi: fps sharded ({n_sh} shards) {rec['fps_sharded']:.1f} "
+              f"(s " + ", ".join(f"{t:.4f}" for t in s_n) + f"), single "
+              f"device {rec['fps_single']:.1f} (s "
+              + ", ".join(f"{t:.4f}" for t in s_1) + f") [{card}]",
+              flush=True)
+
+        def issue_ms(fn):
+            """Host ms until ``fn()`` returns (its work issued) and until
+            every card of the mesh is done; medians of three."""
+            ret, done = [], []
+            for _ in range(3):
+                for d in set(mesh.devices):
+                    torch.cuda.synchronize(d)
+                t = time.perf_counter()
+                fn()
+                ret.append(1e3 * (time.perf_counter() - t))
+                for d in set(mesh.devices):
+                    torch.cuda.synchronize(d)
+                done.append(1e3 * (time.perf_counter() - t))
+            return statistics.median(ret), statistics.median(done)
+
+        block = shard_frames(frames, mesh).blocks[0]
+
+        def detect_block():
+            detector.detect_markers(block, cfg.detect,
+                                    axis_scale=ref.axis_scale)
+
+        rec["issue_ms"] = {
+            "single": issue_ms(single), "sharded": issue_ms(sharded),
+            "detect_one_shard": issue_ms(detect_block)}
+        print(f"multi: host ms until the call returns / until the device "
+              f"is done: single {rec['issue_ms']['single']}, sharded "
+              f"{rec['issue_ms']['sharded']}, one shard's detect "
+              f"({b // n_sh} frames) {rec['issue_ms']['detect_one_shard']} "
+              f"[{card}]", flush=True)
+        # The shards overlap only if detect never makes the host wait for
+        # its card: every synchronizing call PyTorch knows of is reported.
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                detect_block()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        rec["detect_syncs"] = syncs
+        print(f"multi: synchronizing calls in one shard's detect: "
+              f"{len(syncs)} {syncs}", flush=True)
+        if syncs:
+            raise AssertionError(f"multi: detect waits for its card at "
+                                 f"{syncs}")
+        del block
+        del frames, base, out, o1, o2
+        torch.cuda.empty_cache()
+
+        # -- sequential association on the undistorted stream ------------------
+        n, _, dist = STREAM
+        sscene, sframes = render(480, 640, n, dist=np.asarray(dist))
+        scfg = PipelineConfig(
+            undistort_frames=True,
+            track=TrackConfig(association_mode="sequential"),
+            reconstruct=ReconstructConfig(warmup_frames=0))
+        src_map, new_cam = prepare_undistortion(sscene.cam, 480, 640, scfg)
+        sref = initialize(sframes[0], scfg, rectify_map=src_map)
+        sbase = process_frames(sframes, sref, new_cam, scfg,
+                               rectify_map=src_map)
+        sstep = make_sharded_pipeline(mesh, sscene.cam, scfg)
+        sout, counts = counted(lambda: sstep(shard_frames(sframes, mesh),
+                                             sref))
+        expect(counts, "multi sequential", fields=n_sh, gather=n_sh, scan=1,
+               associate=1)
+        rec["sequential"] = {"launches": counts,
+                             "max_abs_err": close(sout, sbase,
+                                                  "multi sequential")}
+        if not torch.equal(sout.tracked.valid, sbase.tracked.valid):
+            raise AssertionError("multi sequential: tracked.valid differs")
+        print(f"multi: sequential association on the {n}-frame undistorted "
+              f"stream == process_frames (max |d| "
+              f"{rec['sequential']['max_abs_err']}); launches {counts}",
+              flush=True)
+        del sframes, sbase, sout
+        torch.cuda.empty_cache()
+
+        # -- ShardedPackedFeed ---------------------------------------------------
+        jpegs = live_jpegs[:MULTI_FEED]
+        rec["feed"] = {}
+        dec = tj.MjpegBatchDecoder(device=dev)
+        for tr in ("tdelta", "split", "packed"):
+            single_x, k1 = counted(lambda: getattr(dec, f"{tr}_to_device")(
+                getattr(dec, f"entropy_decode_{tr}")(jpegs)))
+            feed = ShardedPackedFeed(mesh, transport=tr)
+            sh, kn = counted(lambda: feed.decode_packed(jpegs))
+            expect(kn, f"multi feed {tr}",
+                   expand_sorted=n_sh * k1["expand_sorted"])
+            if not torch.equal(torch.cat([x.to(dev) for x in sh.blocks]),
+                               single_x):
+                raise AssertionError(f"multi feed {tr}: frames differ from "
+                                     "the single-device decode")
+            rec["feed"][tr] = {"launches": kn,
+                               "single_launches": k1["expand_sorted"]}
+            print(f"multi: ShardedPackedFeed {tr} over {len(jpegs)} JPEGs "
+                  f"bitwise equal to the single-device decode; expand "
+                  f"launches {kn['expand_sorted']} ({k1['expand_sorted']} "
+                  f"a decode call, {n_sh} shards)", flush=True)
         return rec
 
     def serve_jpegs(jpegs):
@@ -2476,9 +2995,9 @@ def main(argv=None) -> None:
         rec["b1_tdelta"] = timed(request_tdelta, "TDELTA B=1")
         for key, fn in (("b1", lambda: request(0, 1)),
                         ("b1_tdelta", lambda: request_tdelta(0))):
-            reset_counts()
+            reset_launch_counts()
             fn()
-            rec[key]["launches"] = read_counts()
+            rec[key]["launches"] = launch_counts()
             rec[key]["profile"] = profile_batch(
                 fn, f"request {key} (one request)",
                 rec[key]["p50_ms"] / 1e3, host_top=15)
@@ -2831,6 +3350,12 @@ def main(argv=None) -> None:
         records["phases"]["gather"] = gather_only_phase()
         finish()
         return
+    if args.only == "multi":
+        _, jpegs, _ = encode_period(MULTI_FEED, INGEST[2])
+        live_jpegs[:] = jpegs
+        records["phases"]["multi_device"] = multi_phase()
+        finish()
+        return
 
     # -- kernels vs plain at the reference sensor's unaligned shape -----------
     _, fr = render(437, 467, 4)
@@ -2867,6 +3392,7 @@ def main(argv=None) -> None:
         expect = ({"fields", "gather"} if fused else {"window_sums"}) | {"scan"}
         rec, out = main_path(scene, frames, label, run_cfg, expect)
         if label == RUNS[0][0]:
+            recon4 = out.recon         # for phase 11's contact_signal
             records["phases"]["displacement_scan"] = scan_phase(
                 out.recon.world, out.recon.seen, f"{batch}x65",
                 rec["launches"]["scan"])
@@ -2968,6 +3494,10 @@ def main(argv=None) -> None:
         records["phases"]["pose"] = pose_phase(td)
     with tempfile.TemporaryDirectory() as td:
         records["phases"]["calibrate"] = calibrate_phase(td)
+    with tempfile.TemporaryDirectory() as td:
+        records["phases"]["serve"] = serve_phase(td)
+        records["phases"]["extras"] = extras_phase(td, recon4)
+    records["phases"]["multi_device"] = multi_phase()
     finish()
 
 

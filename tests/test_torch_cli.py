@@ -296,7 +296,7 @@ def test_cli_needs_the_card_unless_device_cpu(inputs, tmp_path, monkeypatch):
     assert not (tmp_path / "markers.csv").exists()
 
 
-@pytest.mark.parametrize("cmd", ["serve", "bench"])
+@pytest.mark.parametrize("cmd", ["bench"])
 def test_unported_subcommands_are_refused(cmd, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["--device", "cpu", cmd])

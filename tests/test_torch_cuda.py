@@ -841,3 +841,146 @@ def test_solve_pnp_ransac_on_the_card(cuda, planar):
     assert own.R_wc.device.type == cuda.type
     assert sorted(np.where(~own.inliers.cpu().numpy())[0]) == sorted(out)
     np.testing.assert_allclose(own.T_wc.cpu().numpy(), t.numpy(), atol=0.1)
+
+
+def _mesh_inputs(dev, b=6):
+    from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
+    scene = default_scene(480, 640, device=dev)
+    d = torch.zeros((b, 65, 3), device=dev)
+    d[:, :, 2] = -0.1 * torch.arange(b, device=dev)[:, None]
+    return scene, render_frames(scene, d)
+
+
+def _assert_sharded_equal(out, base):
+    """The reference's sharded-vs-single tolerances
+    (tests/test_parallel.py): world and cum_path within 1e-4, seen equal."""
+    assert torch.equal(out.recon.seen, base.recon.seen)
+    for name in ("world", "cum_path"):
+        a, b = getattr(out.recon, name), getattr(base.recon, name)
+        assert float((a - b).abs().max()) <= 1e-4, name
+
+
+def test_mesh_on_one_card_matches_one_batch(cuda):
+    """A [cuda:0, cuda:0] mesh (the shards in turn on one card) equals one
+    process_frames batch; each shard launches the fields and gather kernels
+    once, the step the scan once."""
+    from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
+    from vision_basedsensor_tpu_torch.parallel import (make_mesh,
+                                                       make_sharded_pipeline,
+                                                       shard_frames)
+    from vision_basedsensor_tpu_torch.pipeline import (initialize,
+                                                       process_frames)
+    scene, frames = _mesh_inputs(cuda, b=5)
+    cfg = PipelineConfig()
+    ref = initialize(frames[0], cfg)
+    base = process_frames(frames, ref, scene.cam, cfg)
+    mesh = make_mesh([cuda, cuda])
+    step = make_sharded_pipeline(mesh, scene.cam, cfg)
+    s0 = kscan.scan_launches
+    out = step(shard_frames(frames, mesh), ref)
+    torch.cuda.synchronize()
+    assert kscan.scan_launches == s0 + 1
+    assert [(c["fields"], c["gather"]) for c in step.last_shard_launches] \
+        == [(1, 1), (1, 1)]
+    _assert_sharded_equal(out, base)
+    assert int(out.tracked.valid.sum(-1).min()) == 65
+    assert {t["name"].split(".")[0] for t in step.last_transfers} \
+        == {"ref", "detections"}
+
+
+def test_shard_on_a_second_card(cuda):
+    """A shard on cuda:1 while cuda:0 is the thread's device: its kernels
+    launch on cuda:1 and its frames give cuda:0's results."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    from vision_basedsensor_tpu_torch.parallel import (make_mesh,
+                                                       make_sharded_pipeline,
+                                                       shard_frames)
+    from vision_basedsensor_tpu_torch.pipeline import (initialize,
+                                                       process_frames)
+    dev1 = torch.device("cuda", 1)
+    torch.cuda.set_device(cuda)
+    ncc, area, gray = _random_fields(np.random.default_rng(2), 2, 96, 128,
+                                     dev1)
+    cfg = DetectConfig()
+    got = kf.fused_fields(ncc, area, gray, cfg.ncc_threshold, cfg.open_ksize,
+                          cfg.low_res)
+    want = kf.fused_fields_reference(ncc, area, gray, cfg.ncc_threshold,
+                                     cfg.open_ksize, cfg.low_res)
+    torch.cuda.synchronize(dev1)
+    assert got[0].device == dev1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    scene, frames = _mesh_inputs(cuda)
+    pcfg = PipelineConfig()
+    ref = initialize(frames[0], pcfg)
+    base = process_frames(frames, ref, scene.cam, pcfg)
+    mesh = make_mesh([cuda, dev1])
+    sharded = shard_frames(frames, mesh)
+    assert sharded.blocks[1].device == dev1
+    step = make_sharded_pipeline(mesh, scene.cam, pcfg)
+    out = step(sharded, ref)
+    assert out.recon.world.device == cuda
+    assert step.last_shard_launches[1]["fields"] == 1
+    _assert_sharded_equal(out, base)
+    back = [t for t in step.last_transfers
+            if t["src"] == str(dev1) and t["dst"] == str(cuda)]
+    assert back and all(t["name"].startswith("detections.") for t in back)
+
+
+def test_profile_to_on_the_card(cuda, tmp_path):
+    import json
+
+    from vision_basedsensor_tpu_torch.utils import trace_annotation
+    from vision_basedsensor_tpu_torch.utils.profiling import (StageTimer,
+                                                              profile_to)
+    x = torch.randn(256, 256, device=cuda)
+    timer = StageTimer()
+    with profile_to(str(tmp_path)) as prof:
+        with trace_annotation("vbs.matmul"):
+            with timer.stage("matmul", block_on=x @ x):
+                pass
+    assert timer.counts["matmul"] == 1
+    names = {e.get("name") for e in json.loads(
+        (tmp_path / "trace.json").read_text())["traceEvents"]}
+    assert "vbs.matmul" in names
+    assert sum(e.device_time_total for e in prof.key_averages()) > 0
+
+
+def test_encode_jpeg_without_cv2_on_the_card(cuda, monkeypatch):
+    """The card's machine has no cv2: the served frames go through the
+    numpy encoder and decode on the card to within JPEG's error."""
+    from vision_basedsensor_tpu_torch.capture.server import (SyntheticCamera,
+                                                             _encode_jpeg)
+    from vision_basedsensor_tpu_torch.config import CaptureConfig
+    from vision_basedsensor_tpu_torch.io import video
+    from vision_basedsensor_tpu_torch.io.jpeg_encode import encode_jpeg
+    from vision_basedsensor_tpu_torch.ops.jpeg import MjpegBatchDecoder
+    from vision_basedsensor_tpu_torch.synth import default_scene
+    monkeypatch.setattr(video, "_cv2", lambda: None)
+    cam = SyntheticCamera(CaptureConfig(), default_scene(480, 640,
+                                                         device=cuda))
+    frame = cam.read()
+    jpeg = _encode_jpeg(frame, 70)
+    assert jpeg == encode_jpeg(frame[..., 0], 70)
+    dec = MjpegBatchDecoder(device=cuda)
+    x = dec.tdelta_to_device(dec.entropy_decode_tdelta([jpeg]))[0]
+    err = (x - torch.from_numpy(frame[..., 0]).to(cuda).float()).abs()
+    assert float(err.mean()) < 4
+
+
+def test_detect_never_waits_for_the_card(cuda):
+    """Once its cached filter matrices are on the card, detect makes no
+    call that makes the host wait for the card: parallel/mesh.py issues the
+    next shard while this one runs only then."""
+    from vision_basedsensor_tpu_torch.detect.detector import detect_markers
+    _, frames = _mesh_inputs(cuda, b=2)
+    cfg = DetectConfig()
+    scale = torch.ones((), device=cuda)
+    detect_markers(frames, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        detect_markers(frames, cfg, axis_scale=scale)
+        detect_markers(frames, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

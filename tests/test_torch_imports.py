@@ -55,6 +55,10 @@ def test_port_imports_without_jax():
                 "calibrate.pnp", "calibrate.chessboard", "calibrate.images",
                 "calibrate.plots", "analysis.diameter", "synth.degrade"):
         assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
+    # So do the acquisition server, the multi-device path and the extras.
+    for mod in ("capture", "capture.server", "parallel", "parallel.mesh",
+                "parallel.ingest", "analysis.dynamics", "utils.profiling"):
+        assert f"vision_basedsensor_tpu_torch.{mod}" in names, mod
     assert bad == "[]"
 
 

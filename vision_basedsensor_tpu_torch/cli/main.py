@@ -15,13 +15,14 @@ the pose-compensation loop:
   calibrate-extrinsics  world + pixel marker points -> ExtrinsicParameters.xlsx
   synth        render a synthetic dome video (test data)
   diameter     marker diameter validation (C19)
+  serve        MJPEG acquisition server (--synthetic: rendered dome frames)
 
 The arguments are the reference's, spelled the same, so a user's scripts run
 unchanged. One option is new: ``--device {cuda,cpu}`` (before the
 subcommand, default ``cuda``), passed to every constructor; without a card
 and without ``--device cpu`` every command raises (``core/device.py``). The
-reference's ``serve`` and ``bench`` are not registered here, so argparse
-refuses them. ``--plots-dir`` and ``--plot`` need matplotlib.
+reference's ``bench`` is not registered here, so argparse refuses it.
+``--plots-dir`` and ``--plot`` need matplotlib.
 
 ``track --tpu-decode`` reads the video with ``MjpegAviCudaSource`` and
 ``run-live --tpu-decode`` the stream with ``MjpegCudaVideoSource`` (host
@@ -740,6 +741,16 @@ def cmd_run_live(args):
             print(f"session saved to {args.resume}")
 
 
+def cmd_serve(args):
+    from vision_basedsensor_tpu_torch.capture import run_server
+    cfg = _load_cfg(args)
+    cap = cfg.capture
+    if args.port is not None:
+        import dataclasses
+        cap = dataclasses.replace(cap, port=args.port)
+    run_server(cap, synthetic=args.synthetic, block=True, device=args.device)
+
+
 def main(argv=None):
     from vision_basedsensor_tpu_torch.core.device import resolve
 
@@ -908,6 +919,11 @@ def main(argv=None):
                          "transport; raises where that decoder cannot be "
                          "built (no fallback to host decode)")
     rl.set_defaults(fn=cmd_run_live)
+
+    sv = sub.add_parser("serve", help="MJPEG acquisition server")
+    sv.add_argument("--port", type=int)
+    sv.add_argument("--synthetic", action="store_true")
+    sv.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)
     args.device = resolve(args.device)

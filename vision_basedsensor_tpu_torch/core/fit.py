@@ -1,7 +1,8 @@
 """Masked least-squares plane fits.
 
 Port of ``vision_basedsensor_tpu/core/fit.py`` (``masked_mean``,
-``masked_lstsq``, ``fit_plane``, ``fit_plane_robust``). The robust fit's
+``masked_lstsq``, ``fit_plane``, ``fit_plane_robust``,
+``ellipse_from_moments``). The robust fit's
 scale is a NaN-ignoring median that averages the two middle values, like
 ``jnp.nanmedian`` (``torch.nanmedian`` returns the lower one).
 """
@@ -79,3 +80,46 @@ def fit_plane_robust(xyz: torch.Tensor, mask: torch.Tensor | None = None,
         coeff = masked_lstsq(A, z, w)
     a, b, c = coeff[..., 0], coeff[..., 1], coeff[..., 2]
     return PlaneFit(a, b, c, _tilt(a, b))
+
+
+class EllipseMoments(NamedTuple):
+    """Ellipse parameters recovered from second-order region moments."""
+    center: torch.Tensor     # (..., 2) (x, y)
+    major: torch.Tensor      # full major axis length
+    minor: torch.Tensor      # full minor axis length
+    angle_deg: torch.Tensor  # major-axis angle, degrees in [0, 180)
+    area: torch.Tensor       # zeroth moment (pixel count for binary weights)
+
+
+def ellipse_from_moments(weights: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor) -> EllipseMoments:
+    """Fit an ellipse to a weighted pixel region via central moments
+    (``marker_detection.py:196-217``'s ``cv2.fitEllipse`` role): for a
+    filled ellipse of semi-axes (p, q) the covariance eigenvalues are
+    p^2/4 and q^2/4, so the full axes are ``4 sqrt(eig)``. ``weights``,
+    ``x`` and ``y`` broadcast over ``(..., N)`` pixels."""
+    w = weights
+    total = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
+    mx = torch.sum(w * x, dim=-1) / total
+    my = torch.sum(w * y, dim=-1) / total
+    dx = x - mx[..., None]
+    dy = y - my[..., None]
+    mxx = torch.sum(w * dx * dx, dim=-1) / total
+    myy = torch.sum(w * dy * dy, dim=-1) / total
+    mxy = torch.sum(w * dx * dy, dim=-1) / total
+    # Closed-form 2x2 symmetric eigendecomposition.
+    tr = mxx + myy
+    diff = mxx - myy
+    disc = torch.sqrt(torch.clamp(diff * diff + 4.0 * mxy * mxy, min=0.0))
+    lam1 = 0.5 * (tr + disc)  # major
+    lam2 = 0.5 * (tr - disc)  # minor
+    angle = 0.5 * torch.atan2(2.0 * mxy, diff)  # radians, major-axis direction
+    # torch.remainder takes the divisor's sign, as jnp.mod does: [0, 180).
+    angle_deg = torch.remainder(torch.rad2deg(angle), 180.0)
+    return EllipseMoments(
+        center=torch.stack([mx, my], dim=-1),
+        major=4.0 * torch.sqrt(torch.clamp(lam1, min=0.0)),
+        minor=4.0 * torch.sqrt(torch.clamp(lam2, min=0.0)),
+        angle_deg=angle_deg,
+        area=total,
+    )

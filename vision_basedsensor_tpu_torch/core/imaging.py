@@ -127,6 +127,13 @@ def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float,
     return y
 
 
+def box_sum(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Unnormalized ksize x ksize box sum with zero padding (fftconvolve-style
+    'same' borders)."""
+    ones = np.ones(ksize)
+    return _sep_filter(x, ones, ones, "zero")
+
+
 def conv_same_zero(x: torch.Tensor, kh, kw,
                    compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Separable 'same' convolution with zero padding along (H, W)."""

@@ -7,6 +7,12 @@ root, keyed by a hash of the sources and flags, and loaded with ``ctypes``.
 Nothing is compiled or loaded at import time: the first CUDA launch calls
 :func:`library`. A missing ``nvcc`` or a failed compile raises with the
 compiler's output; there is no fallback.
+
+A C entry launches on the runtime's current device, whatever device its
+pointers and stream belong to (and ``cudaFuncSetAttribute`` sets a kernel's
+shared-memory limit for the current device only), so every wrapper makes
+its tensors' device current around the call: a kernel on ``cuda:1`` runs
+there while ``cuda:0`` is the thread's device.
 """
 from __future__ import annotations
 

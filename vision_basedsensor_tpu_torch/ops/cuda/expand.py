@@ -62,9 +62,11 @@ def expand_sorted(pos: torch.Tensor, val: torch.Tensor, total: int,
         return out
     if out.data_ptr() % 16:   # the kernel's 16-byte stores
         raise ValueError("expand_sorted: output not 16-byte aligned")
-    err = build.library().vbs_expand_sorted(
-        pos.data_ptr(), val.data_ptr(), n, sp, sv, m, out.data_ptr(), total,
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    with torch.cuda.device(dev):   # build.py: launches go to it
+        err = lib.vbs_expand_sorted(
+            pos.data_ptr(), val.data_ptr(), n, sp, sv, m, out.data_ptr(),
+            total, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "expand_sorted kernel launch")
     launches += 1
     return out

@@ -95,11 +95,13 @@ def fused_fields(ncc: torch.Tensor, area: torch.Tensor, gray: torch.Tensor,
     if b == 0:
         return packed, cval, cidx
     lib = build.library()
-    err = lib.vbs_fused_fields(
-        ncc.data_ptr(), area.data_ptr(), gray.data_ptr(), packed.data_ptr(),
-        cval.data_ptr(), cidx.data_ptr(), b, h, w, float(threshold),
-        profile.band_window, profile.peak_window, int(open_ksize), r,
-        torch.cuda.current_stream(ncc.device).cuda_stream)
+    with torch.cuda.device(ncc.device):   # build.py: launches go to it
+        err = lib.vbs_fused_fields(
+            ncc.data_ptr(), area.data_ptr(), gray.data_ptr(),
+            packed.data_ptr(), cval.data_ptr(), cidx.data_ptr(), b, h, w,
+            float(threshold), profile.band_window, profile.peak_window,
+            int(open_ksize), r,
+            torch.cuda.current_stream(ncc.device).cuda_stream)
     build.check(err, "fused_fields kernel launch")
     fields_launches += 1
     return packed, cval, cidx

@@ -115,9 +115,10 @@ def gather_windows(packed: torch.Tensor, peaks: Peaks, geom: CutGeometry,
     if b == 0 or k == 0:
         return out, start
     lib = build.library()
-    err = lib.vbs_gather_windows(
-        packed.data_ptr(), start.data_ptr(), out.data_ptr(), b, h, w, k, p,
-        pack, torch.cuda.current_stream(packed.device).cuda_stream)
+    with torch.cuda.device(packed.device):   # build.py: launches go to it
+        err = lib.vbs_gather_windows(
+            packed.data_ptr(), start.data_ptr(), out.data_ptr(), b, h, w, k,
+            p, pack, torch.cuda.current_stream(packed.device).cuda_stream)
     build.check(err, "gather_windows kernel launch")
     gather_launches += 1
     return out, start

@@ -75,10 +75,13 @@ def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
              for key, (dt, shape) in schema.items()}
     cin = ([None] * 5 if carry is None
            else [carry[key].data_ptr() for key in schema])
-    err = build.library().vbs_displacement_scan(
-        world.data_ptr(), seen.data_ptr(), b, n, float(max_step_mm), *cin,
-        *(t.data_ptr() for t in out), *(t.data_ptr() for t in final.values()),
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    with torch.cuda.device(dev):   # build.py: launches go to it
+        err = lib.vbs_displacement_scan(
+            world.data_ptr(), seen.data_ptr(), b, n, float(max_step_mm),
+            *cin, *(t.data_ptr() for t in out),
+            *(t.data_ptr() for t in final.values()),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "displacement_scan kernel launch")
     scan_launches += 1
     return out, final
@@ -118,12 +121,14 @@ def associate_sequential(ref, det, gate_px: float,
            torch.empty((b, n), dtype=f32, device=dev),
            torch.empty((b, n), dtype=torch.bool, device=dev))
     last = torch.empty((n, 2), dtype=f32, device=dev)
-    err = build.library().vbs_associate_sequential(
-        ref.xy.data_ptr(), ref.valid.data_ptr(), det.xy.data_ptr(),
-        det.axes.data_ptr(), det.angle.data_ptr(), det.valid.data_ptr(),
-        None if carry_xy is None else carry_xy.data_ptr(), b, n, k,
-        float(gate_px), *(t.data_ptr() for t in out), last.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.library()
+    with torch.cuda.device(dev):   # build.py: launches go to it
+        err = lib.vbs_associate_sequential(
+            ref.xy.data_ptr(), ref.valid.data_ptr(), det.xy.data_ptr(),
+            det.axes.data_ptr(), det.angle.data_ptr(), det.valid.data_ptr(),
+            None if carry_xy is None else carry_xy.data_ptr(), b, n, k,
+            float(gate_px), *(t.data_ptr() for t in out), last.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "associate_sequential kernel launch")
     assoc_launches += 1
     return out, last

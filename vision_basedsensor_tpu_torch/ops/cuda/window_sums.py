@@ -97,8 +97,10 @@ def _launch(fields, peaks: Peaks, geom: CutGeometry,
     global fields_launches, packed_launches
     out, args, _temps = _prepare(fields, peaks, geom, profile, what)
     if args is not None:
-        err = build.library().vbs_window_sums(
-            *args, torch.cuda.current_stream(out.device).cuda_stream)
+        lib = build.library()
+        with torch.cuda.device(out.device):   # build.py: launches go to it
+            err = lib.vbs_window_sums(
+                *args, torch.cuda.current_stream(out.device).cuda_stream)
         build.check(err, f"{what} kernel launch")
         if len(fields) == 1:
             packed_launches += 1

@@ -265,7 +265,9 @@ def _paired_plumbing(patches, start, peaks, geom, profile: DetectProfile,
                        <= lane_expand(rhs[..., j])[..., None, :] + 1e-3)
     slot0 = lanes < 64
     m0 = slot0.float()
-    inf = torch.tensor(_INF, device=dev)
+    # Python scalars, not a tensor made here: a host-to-device copy makes
+    # the host wait for the stream, so detect could not run ahead of its card.
+    inf = _INF
 
     def interleave(s0, s1):  # (..., K2) x2 -> (..., K), window 2*k2+j
         return torch.stack([s0, s1], dim=-1).reshape(*s0.shape[:-1], 2 * k2)

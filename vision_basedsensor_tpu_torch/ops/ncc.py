@@ -1,9 +1,9 @@
 """Normalized cross-correlation against a Gaussian template, fully separable.
 
-Port of ``vision_basedsensor_tpu/ops/ncc.py`` for the detector's case, a
-binary input (``binary_input=True``): four separable 'same' filter passes
-plus the closed-form box count of the zero-padded window
-(``marker_detection.py:145-164`` semantics).
+Port of ``vision_basedsensor_tpu/ops/ncc.py`` (``marker_detection.py:145-164``
+semantics): six separable 'same' filter passes for any image, or, for the
+detector's binary input (``binary_input=True``), four plus the closed-form
+box count of the zero-padded window.
 """
 from __future__ import annotations
 
@@ -35,14 +35,12 @@ def normxcorr_gaussian(image: torch.Tensor, ksize: int, sigma: float,
                        binary_input: bool = False,
                        compute_dtype: torch.dtype | None = None
                        ) -> torch.Tensor:
-    """NCC of a 0/1 ``image`` ``(..., H, W)`` with a unit-sum Gaussian
-    template. Only ``binary_input=True`` is ported (the detector's call).
-    ``compute_dtype`` as in ``core/imaging.py:_sep_filter``: in bfloat16
-    the filters' input ``raw - mu`` is rounded too, as in the reference."""
-    if not binary_input:
-        raise NotImplementedError(
-            "normxcorr_gaussian(binary_input=False) is not ported; the "
-            "detector only correlates its 0/1 area mask")
+    """NCC of ``image`` ``(..., H, W)`` with a unit-sum Gaussian template
+    (scale-invariant: a 0/255 and a 0/1 mask score alike). With
+    ``binary_input`` the image must be 0/1 and ``box(image^2)`` is closed
+    form. ``compute_dtype`` as in ``core/imaging.py:_sep_filter``: in
+    bfloat16 the filters' inputs are rounded too, as in the reference.
+    Pass a smaller ``min_variance`` for continuous-valued images."""
     raw = image.float()
     # The reference subtracts the global image mean (:152-153); it changes
     # what the zero-padded borders mean, so it is kept.
@@ -54,11 +52,15 @@ def normxcorr_gaussian(image: torch.Tensor, ksize: int, sigma: float,
 
     corr_g = conv_same_zero(image, g, g, compute_dtype)
     box1 = conv_same_zero(image, ones, ones, compute_dtype)
-    # For 0/1 inputs raw^2 == raw: box(m^2) = (1 - 2 mu) box(raw) + mu^2 count
-    # with box(raw) = box(m) + mu count.
-    count = _box_count(image.shape[-2], image.shape[-1], ksize, image.device)
-    box_raw = box1 + mu * count
-    box2 = (1.0 - 2.0 * mu) * box_raw + mu * mu * count
+    if binary_input:
+        # For 0/1 inputs raw^2 == raw: box(m^2) = (1 - 2 mu) box(raw)
+        # + mu^2 count with box(raw) = box(m) + mu count.
+        count = _box_count(image.shape[-2], image.shape[-1], ksize,
+                           image.device)
+        box_raw = box1 + mu * count
+        box2 = (1.0 - 2.0 * mu) * box_raw + mu * mu * count
+    else:
+        box2 = conv_same_zero(image * image, ones, ones, compute_dtype)
 
     num = corr_g - box1 / n
     var_n = torch.clamp(box2 - box1 * box1 / n, min=0.0)
