@@ -62,9 +62,10 @@ rate the card reaches for these bytes) and two probes of the first design
 checked); ``--probe`` adds other sources with the ``vbs_gather_windows``
 entry, timed but not checked.
 
-``--only multi`` runs phases 1-2 and then phase 11c alone (the ingest's
-first MULTI_FEED JPEGs rendered and encoded as phase 7 does): on a machine
-with several cards, the data-parallel step over all of them.
+``--only multi`` runs phases 1-2 and then phases 11c and 11d alone (the
+ingest's first MULTI_FEED JPEGs rendered and encoded as phase 7 does): on
+a machine with several cards, the data-parallel step and the row-sharded
+(spatial) meshes over all of them.
 
 Phases of the full run (any failure raises, so the script exits non-zero
 and prints no result line):
@@ -213,7 +214,21 @@ and prints no result line):
      MULTI_FEED JPEGs for tdelta, split and packed, bitwise equal to the
      single-device decode with the expand kernel launched once a decode
      call a shard; sharded fps beside single-device fps (median of four, in
-     turns).
+     turns). (d) "spatial": the row-sharded meshes (parallel/spatial.py;
+     on one card [cuda:0] * 2 at spatial=2 and [cuda:0] * 4 as 2 x 2, on
+     several every card at spatial=2 and, with four, spatial=4): rendered
+     1080x1920 B=48 frames on each mesh, 640x480 B=64 and ShardedPackedFeed
+     (tdelta, split, packed) over 64 of the ingest's JPEGs on a mesh with a data axis of 2
+     or more, each against process_frames with backend="xla" on the same
+     card (seen equal, world and cum_path within 1e-4, detections as sets
+     within 1e-2 px, 65/65 markers), the window-sums kernel once a row
+     shard and the scan once, the feed bitwise equal to the one-card decode
+     with the expand kernel as often a data group as one decode call; no synchronizing call in the row
+     shards' detect; printed: the DoG-mask pixels that differ from the
+     single-device mask, the halo bytes a shard against its own rows',
+     fps both ways in turns, and the latency of one 1080x1920 frame (B=1,
+     p50/p99 of 50 requests a variant, in turns) for process_frames, the
+     step at spatial=1 and at spatial=s.
 The line before the last is the kernels' JSON record (each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its float32 operations over 67
 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line is
@@ -282,6 +297,12 @@ SERVE = (32, 64, 32)
 EXTRAS_BATCH = 64
 MULTI_BATCH = 1024
 MULTI_FEED = 256
+# Phase 11d (spatial): the 1080x1920 and 640x480 batches, the feed's JPEGs
+# and the B=1 requests a variant (twice, in turns).
+SPATIAL_HIGH = 48
+SPATIAL_LOW = 64
+SPATIAL_FEED = 64
+SPATIAL_REQUESTS = 25
 # --only fields: (rows, cols, batches), each batch the first frames of one
 # render, so the 64-frame inputs are the first 64 of the 1024.
 ONLY_FIELDS = ((480, 640, (1024, 64)), (1080, 1920, (48,)))
@@ -547,7 +568,7 @@ def main(argv=None) -> None:
                     help="check and time only the fields kernel, the "
                          "sorted-expand kernel, the window-sums kernel or the "
                          "window-gather kernel, or run only the data-parallel "
-                         "step (phase 11c)")
+                         "step and the spatial meshes (phases 11c-d)")
     ap.add_argument("--baseline", action="append", default=None,
                     help="with --only: another version of that kernel's "
                          "source to check and time in turns with the current "
@@ -2800,6 +2821,310 @@ def main(argv=None) -> None:
                   f"a decode call, {n_sh} shards)", flush=True)
         return rec
 
+    def spatial_phase():
+        """Phase 11d: the spatial (row-sharded) mesh axis (parallel/
+        spatial.py). On one card the meshes [cuda:0] * 2 at spatial=2 and
+        [cuda:0] * 4 as data 2 x spatial 2; on several cards every visible
+        card at spatial=2 and, with four, at spatial=4. Each mesh takes
+        the 1080x1920 frames at SPATIAL_HIGH's batch (high-res profile), a
+        mesh with a data axis of 2 or more also the 640x480 frames at
+        SPATIAL_LOW's batch and ShardedPackedFeed over SPATIAL_FEED of the
+        ingest's JPEGs. Checks against process_frames of the same frames on
+        the same card with backend="xla": seen equal, world and cum_path
+        within 1e-4, detections as sets within 1e-2 px; the window-sums
+        kernel once a row shard, the scan once; no synchronizing call in
+        the row shards' detect. Prints the DoG-mask pixels that differ from
+        the single-device mask, the halo bytes a shard against its frame
+        rows' bytes, and the latency of one 1080x1920 frame (B=1, p50/p99
+        of SPATIAL_REQUESTS) at spatial=1 and spatial=s."""
+        from vision_basedsensor_tpu_torch.core.imaging import to_grayscale
+        from vision_basedsensor_tpu_torch.parallel import (
+            ShardedPackedFeed, make_mesh, make_sharded_pipeline, shard_frames)
+        from vision_basedsensor_tpu_torch.parallel import spatial as psp
+
+        n_dev = torch.cuda.device_count()
+        if n_dev >= 2:
+            devs = [torch.device("cuda", i) for i in range(n_dev)]
+            meshes = [make_mesh(devs, spatial=2)]
+            if n_dev == 4:
+                meshes.append(make_mesh(devs, spatial=4))
+        else:
+            meshes = [make_mesh([dev] * 2, spatial=2),
+                      make_mesh([dev] * 4, spatial=2)]
+        xcfg = dataclasses.replace(cfg, detect=dataclasses.replace(
+            dcfg, backend="xla"))
+        rec: dict = {"device_count": n_dev, "runs": {}}
+
+        def shape_of(mesh):
+            return f"{len(mesh.grid)}x{mesh.spatial}"
+
+        def devices_of(mesh):
+            return sorted({d for row in mesh.grid for d in row}, key=str)
+
+        def sync_all(mesh):
+            for d in devices_of(mesh):
+                torch.cuda.synchronize(d)
+
+        def counted(fn, mesh):
+            sync_all(mesh)
+            reset_launch_counts()
+            r = fn()
+            sync_all(mesh)
+            return r, launch_counts()
+
+        def close(out, base, what):
+            if not torch.equal(out.recon.seen, base.recon.seen):
+                raise AssertionError(f"{what}: seen differs")
+            errs = {k: float((getattr(out.recon, k)
+                              - getattr(base.recon, k)).abs().max())
+                    for k in ("world", "cum_path")}
+            if max(errs.values()) > 1e-4:
+                raise AssertionError(f"{what}: beyond 1e-4: {errs}")
+            return errs
+
+        def dog_flips(frames, mesh, plan, prof):
+            """DoG-mask pixels of the row blocks' own rows (the shards'
+            shapes: each data group's frames, each block's rows) that differ
+            from the whole frame's mask."""
+            per = -(-frames.shape[0] // len(mesh.grid))
+            flips = 0
+            for i in range(len(mesh.grid)):
+                gray = to_grayscale(frames[i * per:(i + 1) * per],
+                                    dcfg.channel_order)
+                full = dog_area_mask(gray, prof, dcfg.dog_offset)
+                for blk in plan.blocks:
+                    (a, b), (o0, o1) = blk.block, blk.own
+                    part = dog_area_mask(gray[:, a:b], prof, dcfg.dog_offset)
+                    flips += int((part[:, o0 - a:o1 - a]
+                                  != full[:, o0:o1]).sum())
+            return flips
+
+        def run(mesh, h, w, batch, what):
+            scene, frames = render(h, w, batch)
+            ref = initialize(frames[0], xcfg)
+            base = process_frames(frames, ref, scene.cam, xcfg)
+            step = make_sharded_pipeline(mesh, scene.cam, cfg)
+            step(shard_frames(frames[:len(mesh.grid)], mesh), ref)  # warm-up
+            out, counts = counted(
+                lambda: step(shard_frames(frames, mesh), ref), mesh)
+            n_sh = len(mesh.grid) * mesh.spatial
+            expect = {"window_sums": n_sh, "scan": 1}
+            if {k: v for k, v in counts.items() if v} != expect:
+                raise AssertionError(f"spatial {what}: launches {counts}, "
+                                     f"expected {expect}")
+            per_shard = step.last_shard_launches
+            if any(c["window_sums"] != 1 or sum(c.values()) != 1
+                   for c in per_shard) or len(per_shard) != n_sh:
+                raise AssertionError(f"spatial {what}: per-shard launches "
+                                     f"{per_shard}")
+            errs = close(out, base, f"spatial {what}")
+            dxy = detections_as_sets(out.detections, base.detections,
+                                     f"spatial {what} detections", tol=1e-2)
+            plan = psp.row_plan(h, w, mesh.spatial, cfg, False)
+            flips = dog_flips(frames, mesh, plan, plan.profile)
+            halo = {}
+            for t in step.last_transfers:
+                if t["name"] == "halo":
+                    key = str(tuple(t["shard"]))
+                    halo[key] = halo.get(key, 0) + t["bytes"]
+            per = -(-batch // len(mesh.grid))
+            own_bytes = per * (h // mesh.spatial) * w * frames.element_size()
+            tracked = int(out.tracked.valid.sum(-1).min())
+            if tracked != 65:
+                raise AssertionError(f"spatial {what}: tracked min {tracked}")
+
+            def single():
+                process_frames(frames, ref, scene.cam, xcfg)
+
+            def sharded():
+                step(shard_frames(frames, mesh), ref)
+
+            s_1, s_n = _wall_s(single, 2), _wall_s(sharded, 2)
+            s_n += _wall_s(sharded, 2)
+            s_1 += _wall_s(single, 2)
+            r = {"mesh": shape_of(mesh), "profile_patch": plan.profile.patch_size,
+                 "halo_rows": plan.halo, "launches": counts,
+                 "per_shard": per_shard, "max_abs_err": errs,
+                 "detections_max_px": dxy, "dog_flips": flips,
+                 "dog_pixels": batch * h * w, "halo_bytes": halo,
+                 "own_rows_bytes": own_bytes,
+                 "frame_bytes": frames.numel() * frames.element_size(),
+                 "fps_single": batch / statistics.median(s_1),
+                 "fps_spatial": batch / statistics.median(s_n),
+                 "s_single": s_1, "s_spatial": s_n,
+                 "blocks": [list(b.block) for b in plan.blocks]}
+            print(f"spatial {what} on a {shape_of(mesh)} mesh "
+                  f"({[str(d) for d in devices_of(mesh)]}): == process_frames "
+                  f"backend=xla (seen equal, max |d| {errs}, detections as "
+                  f"sets within {dxy} px), 65/65 markers; launches {counts}, "
+                  f"per shard {per_shard[0]}; DoG pixels differing from the "
+                  f"single-device mask: {flips} of {batch * h * w}; halo "
+                  f"rows {plan.halo}, blocks {r['blocks']}; halo bytes a "
+                  f"shard {halo} against its own rows' {own_bytes} B "
+                  f"(frames {r['frame_bytes']} B); fps spatial "
+                  f"{r['fps_spatial']:.1f} (s "
+                  + ", ".join(f"{t:.4f}" for t in s_n) + f"), single device "
+                  f"{r['fps_single']:.1f} (s "
+                  + ", ".join(f"{t:.4f}" for t in s_1) + f") [{card}]",
+                  flush=True)
+            return r, scene, frames, ref
+
+        def no_sync(mesh, frames, ref):
+            """The row shards' detect under set_sync_debug_mode: every
+            synchronizing call PyTorch knows of is reported."""
+            sharded = shard_frames(frames, mesh)
+            h, w = frames.shape[1:3]
+            plan = psp.row_plan(h, w, mesh.spatial, cfg, False)
+            s = mesh.spatial
+            blocks = [sharded.blocks[i * s:(i + 1) * s]
+                      for i in range(len(mesh.grid))]
+            scales = [ref.axis_scale.to(row[0]) for row in mesh.grid]
+            maps = [[None] * s for _ in mesh.grid]
+
+            def go():
+                psp.detect_row_shards(blocks, mesh.grid, h // s, plan, cfg,
+                                      scales, maps,
+                                      lambda x, d, *a: x.to(d))
+            go()
+            sync_all(mesh)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    go()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                     if "synchroniz" in str(w.message)]
+            print(f"spatial: synchronizing calls in the row shards' detect "
+                  f"({shape_of(mesh)}): {len(syncs)} {syncs}", flush=True)
+            if syncs:
+                raise AssertionError(f"spatial: detect waits at {syncs}")
+            return syncs
+
+        def latency(mesh, scene, frames, ref):
+            """One 1080x1920 frame a request: host uint8 -> the card(s) ->
+            the step (or process_frames) -> the last frame's tilt on the
+            host; SPATIAL_REQUESTS requests, p50/p99 (nearest rank)."""
+            u8 = frames.to(torch.uint8).cpu()
+            one = make_mesh([mesh.home])
+            steps = {"process_frames": None,
+                     "spatial=1": make_sharded_pipeline(one, scene.cam, xcfg),
+                     f"spatial={mesh.spatial}": make_sharded_pipeline(
+                         mesh, scene.cam, cfg)}
+            meshes = {"spatial=1": one, f"spatial={mesh.spatial}": mesh}
+
+            def request(label, i):
+                x = u8[i % u8.shape[0]:i % u8.shape[0] + 1]
+                if steps[label] is None:
+                    out = process_frames(x.to(dev).float(), ref, scene.cam,
+                                         xcfg)
+                else:
+                    out = steps[label](shard_frames(x, meshes[label]), ref)
+                return out.contact.tilt_deg[-1].item()
+
+            res = {}
+            for _ in range(2):              # in turns: a, b, c, c, b, a
+                for label in (list(steps) if not res else
+                              list(reversed(list(steps)))):
+                    request(label, 0)       # warm-up, not timed
+                    times = []
+                    for i in range(SPATIAL_REQUESTS):
+                        t = time.perf_counter()
+                        tilt = request(label, i)
+                        times.append(time.perf_counter() - t)
+                        if not math.isfinite(tilt):
+                            raise AssertionError(f"spatial {label}: tilt "
+                                                 f"{tilt}")
+                    res.setdefault(label, []).extend(times)
+            out = {}
+            for label, times in res.items():
+                times.sort()
+
+                def rank(q):
+                    return 1e3 * times[math.ceil(q * len(times)) - 1]
+
+                out[label] = {"p50_ms": rank(0.5), "p99_ms": rank(0.99),
+                              "min_ms": 1e3 * times[0],
+                              "max_ms": 1e3 * times[-1],
+                              "requests": len(times)}
+                print(f"spatial: one 1080x1920 frame a request, {label} "
+                      f"({shape_of(mesh) if label != 'process_frames' else 'one card'}): "
+                      f"p50 {out[label]['p50_ms']:.3f} ms, p99 "
+                      f"{out[label]['p99_ms']:.3f} ms, min "
+                      f"{out[label]['min_ms']:.3f}, max "
+                      f"{out[label]['max_ms']:.3f} over {len(times)} "
+                      f"requests [{card}]", flush=True)
+            return out
+
+        for mesh in meshes:
+            key = shape_of(mesh)
+            r, scene, frames, ref = run(mesh, 1080, 1920, SPATIAL_HIGH,
+                                        f"{SPATIAL_HIGH}x1080x1920 {key}")
+            rec["runs"][f"1080x1920 {key}"] = r
+            if len(mesh.grid) == 1:
+                r["detect_syncs"] = no_sync(mesh, frames[:4], ref)
+                rec[f"latency {key}"] = latency(mesh, scene, frames, ref)
+            del scene, frames, ref
+            torch.cuda.empty_cache()
+            if len(mesh.grid) < 2:
+                continue
+            r, scene, frames, ref = run(mesh, 480, 640, SPATIAL_LOW,
+                                        f"{SPATIAL_LOW}x480x640 {key}")
+            rec["runs"][f"480x640 {key}"] = r
+            del scene, frames, ref
+            # ShardedPackedFeed: each data group's payload decoded on its
+            # first device (the expand kernel as often as one decode call
+            # launches it), the rows copied out to the group's devices.
+            jpegs = live_jpegs[:SPATIAL_FEED]
+            dec = tj.MjpegBatchDecoder(device=dev)
+            s = mesh.spatial
+            for tr in ("tdelta", "split", "packed"):
+                single_x, k1 = counted(lambda: getattr(
+                    dec, f"{tr}_to_device")(getattr(
+                        dec, f"entropy_decode_{tr}")(jpegs)), mesh)
+                feed = ShardedPackedFeed(mesh, transport=tr)
+                sh, kn = counted(lambda: feed.decode_packed(jpegs), mesh)
+                want = len(mesh.grid) * k1["expand_sorted"]
+                if {k: v for k, v in kn.items() if v} != {
+                        "expand_sorted": want}:
+                    raise AssertionError(f"spatial feed {tr} {key}: launches "
+                                         f"{kn}, expected expand {want}")
+                got = torch.cat([torch.cat([b.to(dev) for b in
+                                            sh.blocks[i * s:(i + 1) * s]], 1)
+                                 for i in range(len(mesh.grid))])
+                if not torch.equal(got, single_x):
+                    raise AssertionError(f"spatial feed {tr} {key}: frames "
+                                         "differ from the single-device "
+                                         "decode")
+                rec["runs"][f"feed {tr} {key}"] = {
+                    "launches": kn, "single_launches": k1}
+                print(f"spatial: ShardedPackedFeed {tr} over {len(jpegs)} "
+                      f"JPEGs on a {key} mesh bitwise equal to the "
+                      f"single-device decode; expand launches "
+                      f"{kn['expand_sorted']} ({k1['expand_sorted']} a "
+                      f"decode call, {len(mesh.grid)} data groups)",
+                      flush=True)
+            # The step takes the last feed's blocks where they lie.
+            fcam = default_scene(480, 640, device=dev).cam
+            ref = initialize(single_x[0], xcfg)
+            fstep = make_sharded_pipeline(mesh, fcam, cfg)
+            fout, k_step = counted(lambda: fstep(sh, ref), mesh)
+            if {k: v for k, v in k_step.items() if v} != {
+                    "window_sums": len(mesh.grid) * s, "scan": 1}:
+                raise AssertionError(f"spatial feed {key}: step launches "
+                                     f"{k_step}")
+            ferr = close(fout, process_frames(single_x, ref, fcam, xcfg),
+                         f"spatial feed {key}")
+            rec["runs"][f"feed step {key}"] = {"launches": k_step,
+                                               "max_abs_err": ferr}
+            print(f"spatial: the step on the packed feed's blocks launched "
+                  f"{k_step}, == process_frames (max |d| {ferr})",
+                  flush=True)
+            del single_x, sh, got, fout
+            torch.cuda.empty_cache()
+        return rec
+
     def serve_jpegs(jpegs):
         """A localhost MJPEG server (multipart/x-mixed-replace with
         Content-Length) that sends ``jpegs`` once a request; returns the
@@ -3354,6 +3679,7 @@ def main(argv=None) -> None:
         _, jpegs, _ = encode_period(MULTI_FEED, INGEST[2])
         live_jpegs[:] = jpegs
         records["phases"]["multi_device"] = multi_phase()
+        records["phases"]["spatial"] = spatial_phase()
         finish()
         return
 
@@ -3498,6 +3824,7 @@ def main(argv=None) -> None:
         records["phases"]["serve"] = serve_phase(td)
         records["phases"]["extras"] = extras_phase(td, recon4)
     records["phases"]["multi_device"] = multi_phase()
+    records["phases"]["spatial"] = spatial_phase()
     finish()
 
 

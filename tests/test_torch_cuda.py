@@ -984,3 +984,90 @@ def test_detect_never_waits_for_the_card(cuda):
         detect_markers(frames, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def _spatial_inputs(cuda):
+    """Rendered 480x640 frames, the reference table and process_frames of
+    the unfused branch (a spatial mesh's detector) on one card."""
+    import dataclasses
+    from vision_basedsensor_tpu_torch.pipeline import (initialize,
+                                                       process_frames)
+    scene, frames = _mesh_inputs(cuda, b=4)
+    cfg = PipelineConfig()
+    xcfg = dataclasses.replace(cfg, detect=dataclasses.replace(
+        cfg.detect, backend="xla"))
+    ref = initialize(frames[0], xcfg)
+    return scene, frames, cfg, ref, process_frames(frames, ref, scene.cam,
+                                                   xcfg)
+
+
+def test_spatial_mesh_on_one_card_matches_one_batch(cuda):
+    """A [cuda:0, cuda:0] spatial mesh (two row shards in turn on one card)
+    equals one process_frames batch of the unfused branch; each row shard
+    launches the window-sums kernel once, the step the scan once."""
+    from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
+    from vision_basedsensor_tpu_torch.parallel import (make_mesh,
+                                                       make_sharded_pipeline,
+                                                       shard_frames)
+    scene, frames, cfg, ref, base = _spatial_inputs(cuda)
+    mesh = make_mesh([cuda, cuda], spatial=2)
+    step = make_sharded_pipeline(mesh, scene.cam, cfg)
+    s0 = kscan.scan_launches
+    out = step(shard_frames(frames, mesh), ref)
+    torch.cuda.synchronize()
+    assert kscan.scan_launches == s0 + 1
+    assert [(c["window_sums"], sum(c.values()))
+            for c in step.last_shard_launches] == [(1, 1), (1, 1)]
+    _assert_sharded_equal(out, base)
+    assert int(out.tracked.valid.sum(-1).min()) == 65
+
+
+def test_spatial_mesh_on_two_cards(cuda):
+    """Rows 0-239 on cuda:0 and 240-479 on cuda:1: the halo rows cross
+    between the cards, the results come back to cuda:0 equal to one card's
+    batch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    from vision_basedsensor_tpu_torch.parallel import (make_mesh,
+                                                       make_sharded_pipeline,
+                                                       shard_frames)
+    dev1 = torch.device("cuda", 1)
+    torch.cuda.set_device(cuda)
+    scene, frames, cfg, ref, base = _spatial_inputs(cuda)
+    mesh = make_mesh([cuda, dev1], spatial=2)
+    sharded = shard_frames(frames, mesh)
+    assert [b.device for b in sharded.blocks] == [cuda, dev1]
+    step = make_sharded_pipeline(mesh, scene.cam, cfg)
+    out = step(sharded, ref)
+    assert out.recon.world.device == cuda
+    assert [c["window_sums"] for c in step.last_shard_launches] == [1, 1]
+    _assert_sharded_equal(out, base)
+    halo = {(t["src"], t["dst"]) for t in step.last_transfers
+            if t["name"] == "halo"}
+    assert halo == {(str(cuda), str(dev1)), (str(dev1), str(cuda))}
+
+
+def test_row_shard_detect_never_waits_for_the_card(cuda):
+    """Once its cached filter matrices are on the card, the row shards'
+    detect (every stage, the copies between shards included) makes no call
+    that makes the host wait for the card."""
+    from vision_basedsensor_tpu_torch.parallel import make_mesh, shard_frames
+    from vision_basedsensor_tpu_torch.parallel import spatial as psp
+    scene, frames, cfg, ref, _ = _spatial_inputs(cuda)
+    mesh = make_mesh([cuda, cuda], spatial=2)
+    blocks = [shard_frames(frames, mesh).blocks]
+    plan = psp.row_plan(480, 640, 2, cfg, False)
+
+    def detect():
+        return psp.detect_row_shards(blocks, mesh.grid, 240, plan, cfg,
+                                     [ref.axis_scale], [[None, None]],
+                                     lambda x, d, *a: x.to(d))
+    detect()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dets, launches = detect()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [c["window_sums"] for c in launches] == [1, 1]
+    assert int(dets[0].valid.sum(-1).min()) >= 65

@@ -292,8 +292,15 @@ def test_sharded_packed_feed_rejects_bad_input():
 
 
 def test_mesh_arguments(setup, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(["cpu"] * 4, spatial=2)
+    grid = make_mesh(["cpu"] * 6, spatial=2)
+    assert grid.axis_names == ("data", "spatial")
+    assert grid.devices == ((torch.device("cpu"),) * 2,) * 3
+    assert (grid.spatial, len(grid.grid)) == (2, 3)
+    with pytest.raises(ValueError, match="divide"):
+        make_mesh(["cpu"] * 5, spatial=2)
+    with pytest.raises(ValueError, match="spatial axis"):
+        shard_frames(np.zeros((2, 250, 8), np.float32),
+                     make_mesh(["cpu"] * 4, spatial=4))
     mesh = make_mesh(["cpu", torch.device("cpu")])
     assert mesh.devices == (torch.device("cpu"),) * 2
     assert mesh.axis_names == ("data",)
@@ -318,3 +325,217 @@ def test_launch_counts_read_and_reset_every_kernel(monkeypatch):
     assert counts["fields"] == 3 and counts["associate"] == 2
     kcuda.reset_launch_counts()
     assert set(kcuda.launch_counts().values()) == {0}
+
+
+# -- the spatial (row-sharded) axis -------------------------------------------
+
+# The order in which a row-sharded step issues its copies: each stage on
+# every shard before the copies that follow it.
+STAGES = (("rectify_map",), ("ref.axis_scale",), ("halo",), ("area_sum",),
+          ("area_mean",), ("cells",), ("peaks", "geom"), ("sums",),
+          ("detections",))
+
+
+def _stage(name):
+    for i, stage in enumerate(STAGES):
+        if name.split(".")[0] in stage or name in stage:
+            return i
+    raise AssertionError(f"unexpected transfer {name}")
+
+
+def _xla(tc):
+    return dataclasses.replace(
+        tc, detect=dataclasses.replace(tc.detect, backend="xla"))
+
+
+def _check_spatial_evidence(step, mesh):
+    """One launch record per row shard; halo rows only from shards of the
+    same data group; every stage's copies in order, so that a shard's
+    inputs are out before any result comes back."""
+    groups, s = len(mesh.grid), mesh.spatial
+    assert len(step.last_shard_launches) == groups * s
+    assert all(set(c.values()) == {0} for c in step.last_shard_launches)
+    stages = [_stage(t["name"]) for t in step.last_transfers]
+    assert stages == sorted(stages)
+    halo = [t for t in step.last_transfers if t["name"] == "halo"]
+    assert halo and all(t["peer"][0] == t["shard"][0]
+                        and t["peer"][1] != t["shard"][1] for t in halo)
+    # Each shard receives halo rows from every neighbour its block reaches.
+    assert {t["shard"] for t in halo} == {(i, j) for i in range(groups)
+                                          for j in range(s)}
+
+
+@pytest.mark.parametrize("ndev,spatial", [(8, 2), (8, 4), (6, 2)])
+def test_spatial_step_matches_single_device(setup, ndev, spatial):
+    """The reference's test_2d_mesh_data_spatial / _spatial4
+    (tests/test_parallel.py:63-108), and an uneven batch on a data axis of
+    3: the row shards' detections equal the single-device unfused branch."""
+    s = setup
+    mesh = make_mesh(["cpu"] * ndev, spatial=spatial)
+    sharded = shard_frames(s["frames"], mesh)
+    groups = ndev // spatial
+    per = -(-B // groups)
+    assert sharded.spatial == spatial
+    assert [b.shape for b in sharded.blocks] \
+        == [(per, H // spatial, W)] * ndev
+    step = make_sharded_pipeline(mesh, s["cam"], s["tc"])
+    out = step(sharded, s["ref"])
+    base = tpipe.process_frames(torch.tensor(s["frames"]), s["ref"],
+                                s["cam"], _xla(s["tc"]))
+    _close(out, base)
+    _close(out, s["jout"])
+    _same_detections(out, base)
+    _check_spatial_evidence(step, mesh)
+
+
+def test_spatial_step_with_carry_and_sequential(setup, sequential):
+    """Two carried chunks, and the last-sighting association over two
+    carried chunks, on a (2, 4) mesh."""
+    s, q = setup, sequential
+    mesh = make_mesh(["cpu"] * 8, spatial=4)
+    step = make_sharded_pipeline(mesh, s["cam"], s["tc"], with_carry=True)
+    carry, cum = initial_carry(65, device="cpu"), []
+    for i in (0, 4):
+        out, carry = step(shard_frames(s["frames"][i:i + 4], mesh), s["ref"],
+                          carry)
+        cum.append(np_(out.recon.cum_path))
+    np.testing.assert_allclose(np.concatenate(cum),
+                               np_(s["jout"].recon.cum_path), atol=1e-4)
+    assert step.frames_seen == B
+    step = make_sharded_pipeline(make_mesh(["cpu"] * 4, spatial=2), s["cam"],
+                                 q["tc"], with_carry=True)
+    carry, xy = initial_carry(65, device="cpu"), q["ref"].xy
+    outs = []
+    for i in (0, 5):
+        o, (carry, xy) = step(torch.tensor(s["frames"][i:i + 5]), q["ref"],
+                              carry, xy)
+        outs.append(o)
+    base = tpipe.process_frames(torch.tensor(s["frames"]), q["ref"],
+                                s["cam"], _xla(q["tc"]))
+    for name in ("seen", "world", "cum_path"):
+        np.testing.assert_allclose(
+            np.concatenate([np_(getattr(o.recon, name)) for o in outs]),
+            np_(getattr(base.recon, name)), atol=1e-4)
+        np.testing.assert_allclose(
+            np.concatenate([np_(getattr(o.recon, name)) for o in outs]),
+            np_(getattr(q["jout"].recon, name)), atol=1e-4)
+    np.testing.assert_array_equal(
+        np.concatenate([np_(o.tracked.valid) for o in outs]),
+        np_(q["jout"].tracked.valid))
+
+
+def test_spatial_undistort(setup):
+    """cfg.undistort_frames on a (2, 2) mesh: each row shard remaps from the
+    source rows of its map rows, clamped to the frame's height; each
+    shard's rows of the map are copied once."""
+    frames, scene = _render(4, 0.2, dist=DIST)
+    jc = dataclasses.replace(setup["jc"], undistort_frames=True)
+    jref, jout = _jax_run(frames, scene, jc, rectify=True)
+    tc = convert.config_from_jax(jc)
+    cam = convert.camera_from_numpy(scene.cam, device="cpu")
+    ref = convert.reference_from_numpy(jref, device="cpu")
+    mesh = make_mesh(["cpu"] * 4, spatial=2)
+    step = make_sharded_pipeline(mesh, cam, tc)
+    out = step(shard_frames(frames, mesh), ref)
+    _close(out, jout, b=4)
+    rmap, rcam = tpipe.prepare_undistortion(cam, H, W, tc)
+    base = tpipe.process_frames(torch.tensor(frames), ref, rcam, _xla(tc),
+                                rectify_map=rmap)
+    _close(out, base, b=4)
+    _same_detections(out, base)
+    assert sorted(t["shard"] for t in step.last_transfers
+                  if t["name"] == "rectify_map") == [(0, 1), (1, 0), (1, 1)]
+    step(shard_frames(frames, mesh), ref)
+    assert "rectify_map" not in {t["name"] for t in step.last_transfers}
+    _check_spatial_evidence(step, mesh)
+
+
+def test_spatial_crop(setup):
+    """crop=True with crop_ratios set: the shards read the raw rows below
+    the crop's top and split the cropped frame's rows."""
+    s = setup
+    jc = dataclasses.replace(s["jc"], crop_ratios=(0.05, 0.1, 0.1, 0.05))
+    x = to_jax(s["frames"])
+    jref = jpipe.initialize(x[0], jc, True)
+    jout = jax.block_until_ready(
+        jpipe.process_frames(x, jref, s["scene"].cam, jc, crop=True))
+    tc = convert.config_from_jax(jc)
+    ref = convert.reference_from_numpy(jref, device="cpu")
+    base = tpipe.process_frames(torch.tensor(s["frames"]), ref, s["cam"],
+                                _xla(tc), crop=True)
+    for spatial in (2, 4):
+        mesh = make_mesh(["cpu"] * 8, spatial=spatial)
+        step = make_sharded_pipeline(mesh, s["cam"], tc, crop=True)
+        out = step(shard_frames(s["frames"], mesh), ref)
+        _close(out, base)
+        _close(out, jout)
+        _same_detections(out, base)
+
+
+@pytest.mark.parametrize("transport", ["tdelta", "split", "packed"])
+def test_spatial_packed_feed_matches_single_device(setup, jpegs, transport):
+    """The 2-D ShardedPackedFeed: each data group's payload decoded on its
+    first device (one expand per group), its row blocks on the group's
+    devices, bitwise equal to the single-device decode (the reference's
+    test_sharded_packed_ingest_2d_mesh)."""
+    s = setup
+    mesh = make_mesh(["cpu"] * 8, spatial=2)
+    sharded = ShardedPackedFeed(mesh, transport=transport).decode_packed(jpegs)
+    assert sharded.spatial == 2 and sharded.n_frames == B
+    assert [b.shape for b in sharded.blocks] == [(2, H // 2, W)] * 8
+    dec = MjpegBatchDecoder(device="cpu")
+    single = getattr(dec, f"{transport}_to_device")(
+        getattr(dec, f"entropy_decode_{transport}")(jpegs))
+    groups = [torch.cat(sharded.blocks[i:i + 2], 1) for i in range(0, 8, 2)]
+    assert torch.equal(torch.cat(groups), single)
+    if transport == "split":
+        ref = tpipe.initialize(single[0], s["tc"])
+        out = make_sharded_pipeline(mesh, s["cam"], s["tc"])(sharded, ref)
+        _close(out, tpipe.process_frames(single, ref, s["cam"],
+                                         _xla(s["tc"])))
+    with pytest.raises(ValueError, match="spatial axis"):
+        ShardedPackedFeed(make_mesh(["cpu"] * 7, spatial=7),
+                          transport=transport).decode_packed(jpegs[:1])
+
+
+def test_halo_rows_hand_count():
+    """blur + NCC + max(band, peak) window halves + window half + 7 rows of
+    a cell across the cut (the low-res profile: 17 + 16 + 4 + 20 + 7; the
+    high-res: 50 + 40 + 7 + 32 + 7)."""
+    from vision_basedsensor_tpu_torch.config import DetectConfig
+    from vision_basedsensor_tpu_torch.parallel.spatial import halo_rows
+    cfg = DetectConfig()
+    assert halo_rows(cfg, cfg.low_res) == 64
+    assert halo_rows(cfg, cfg.high_res) == 136
+
+
+@pytest.mark.parametrize("spatial", [2, 4])
+def test_row_block_fields_equal_the_frame(setup, spatial):
+    """A shard's own rows of the DoG area mask equal the whole frame's
+    exactly, and of the NCC (with the frame's mean) within 1e-5, with a
+    marker across every cut."""
+    from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
+    from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
+    from vision_basedsensor_tpu_torch.parallel.spatial import row_plan
+    tc = setup["tc"]
+    prof = tc.detect.low_res
+    gray = torch.tensor(setup["frames"][:2])
+    area = dog_area_mask(gray, prof, tc.detect.dog_offset).float()
+    ncc = normxcorr_gaussian(area, prof.template_size, prof.template_sigma,
+                             binary_input=True)
+    mean = area.mean(dim=(-2, -1), keepdim=True)
+    plan = row_plan(H, W, spatial, tc, False)
+    assert plan.profile == prof and plan.halo == 64
+    for blk in plan.blocks[1:]:
+        cut = blk.own[0]
+        assert bool(area[:, cut - 3:cut + 3].any(-1).all())   # a marker
+    for blk in plan.blocks:
+        (a, b), (o0, o1) = blk.block, blk.own
+        assert a % 8 == 0 and blk.src == blk.block
+        part = dog_area_mask(gray[:, a:b], prof, tc.detect.dog_offset).float()
+        assert torch.equal(part[:, o0 - a:o1 - a], area[:, o0:o1])
+        pncc = normxcorr_gaussian(part, prof.template_size,
+                                  prof.template_sigma, binary_input=True,
+                                  mean=mean)
+        np.testing.assert_allclose(np_(pncc[:, o0 - a:o1 - a]),
+                                   np_(ncc[:, o0:o1]), atol=1e-5)

@@ -64,24 +64,32 @@ def build_rectify_map(cam: CameraModel, h: int, w: int,
     return cam_mod.normalized_to_pixel(cam, cam_mod.distort_normalized(cam, xyn))
 
 
-def remap_bilinear(frames: torch.Tensor, src_map: torch.Tensor) -> torch.Tensor:
+def remap_bilinear(frames: torch.Tensor, src_map: torch.Tensor,
+                   row0: int = 0, height: int | None = None) -> torch.Tensor:
     """Bilinear remap of frames ``(..., H, W)`` through ``src_map``
-    ``(H, W, 2)``. Samples outside the frame read the clamped border."""
+    ``(H', W, 2)``. Samples outside the frame read the clamped border.
+
+    ``frames`` may be rows ``row0..`` of a frame ``height`` rows tall (a
+    row shard, ``parallel/spatial.py``): the map's rows are then clamped
+    to the frame, not to the block, and must fall inside the block."""
     h, w = frames.shape[-2:]
+    full = h if height is None else height
     x = torch.clamp(src_map[..., 0], 0.0, w - 1.000001)
-    y = torch.clamp(src_map[..., 1], 0.0, h - 1.000001)
+    y = torch.clamp(src_map[..., 1], 0.0, full - 1.000001)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0
     fy = y - y0
     x0, y0 = x0.long(), y0.long()
     flat = frames.reshape(*frames.shape[:-2], h * w)
+    out_shape = frames.shape[:-2] + src_map.shape[:-1]
 
     def gather(yy, xx):
         # w - 1.000001 rounds to w - 1 in float32 for w >= 64, so x0 + 1
         # can leave the frame; JAX clamps gather indices, and so does this.
-        idx = torch.clamp(yy, max=h - 1) * w + torch.clamp(xx, max=w - 1)
-        return flat[..., idx.reshape(-1)].reshape(frames.shape)
+        idx = ((torch.clamp(yy, max=full - 1) - row0) * w
+               + torch.clamp(xx, max=w - 1))
+        return flat[..., idx.reshape(-1)].reshape(out_shape)
 
     v00 = gather(y0, x0)
     v01 = gather(y0, x0 + 1)

@@ -33,18 +33,26 @@ def _box_count(h: int, w: int, ksize: int,
 def normxcorr_gaussian(image: torch.Tensor, ksize: int, sigma: float,
                        min_variance: float = 0.5,
                        binary_input: bool = False,
-                       compute_dtype: torch.dtype | None = None
-                       ) -> torch.Tensor:
+                       compute_dtype: torch.dtype | None = None,
+                       mean: torch.Tensor | None = None) -> torch.Tensor:
     """NCC of ``image`` ``(..., H, W)`` with a unit-sum Gaussian template
     (scale-invariant: a 0/255 and a 0/1 mask score alike). With
     ``binary_input`` the image must be 0/1 and ``box(image^2)`` is closed
     form. ``compute_dtype`` as in ``core/imaging.py:_sep_filter``: in
     bfloat16 the filters' inputs are rounded too, as in the reference.
-    Pass a smaller ``min_variance`` for continuous-valued images."""
+    Pass a smaller ``min_variance`` for continuous-valued images.
+
+    ``mean`` ``(..., 1, 1)``: the mean of the whole frame when ``image``
+    holds only some of its rows (a row shard, ``parallel/spatial.py``);
+    by default the mean of ``image``, its sum over its pixel count (as
+    ``jnp.mean``: for a 0/1 mask below 2^24 pixels the sum is exact, so a
+    sum of the shards' sums over the frame's count gives the same bits)."""
     raw = image.float()
     # The reference subtracts the global image mean (:152-153); it changes
     # what the zero-padded borders mean, so it is kept.
-    mu = torch.mean(raw, dim=(-2, -1), keepdim=True)
+    h, w = raw.shape[-2:]
+    mu = (raw.sum(dim=(-2, -1), keepdim=True) / (h * w) if mean is None
+          else mean)
     image = raw - mu
     g = gaussian_taps(ksize, sigma)
     n = float(ksize * ksize)

@@ -40,6 +40,31 @@ def _suppress(xy: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
     return valid & ~killed
 
 
+def top_cells(vals: torch.Tensor, flat: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of ``vals`` ``(..., n)`` and their flat pixel
+    indices ``flat``, sorted descending, equal values in their order in
+    ``vals`` (``lax.top_k``'s). Shards' lists concatenated in row order
+    merge into the whole frame's (``parallel/spatial.py``)."""
+    vals, order = torch.sort(vals, dim=-1, descending=True, stable=True)
+    vals, order = vals[..., :k], order[..., :k]
+    return vals, torch.gather(flat.long(), -1, order)
+
+
+def peaks_from_top(vals: torch.Tensor, flat: torch.Tensor, width: int,
+                   min_distance: float) -> Peaks:
+    """:class:`Peaks` from :func:`top_cells`' ranked values and flat indices
+    (``y * width + x``): the finite ones valid, then distance
+    suppression."""
+    ys = torch.div(flat, width, rounding_mode="floor").float()
+    xs = torch.remainder(flat, width).float()
+    xy = torch.stack([xs, ys], dim=-1)
+    valid = torch.isfinite(vals)
+    valid = _suppress(xy, vals, valid, min_distance)
+    return Peaks(xy=xy, score=torch.where(valid, vals, torch.zeros_like(vals)),
+                 valid=valid)
+
+
 def select_peaks_from_cells(cmax: torch.Tensor, cflat: torch.Tensor,
                             width: int, max_peaks: int,
                             min_distance: float) -> Peaks:
@@ -48,17 +73,9 @@ def select_peaks_from_cells(cmax: torch.Tensor, cflat: torch.Tensor,
     distance suppression."""
     batch = cmax.shape[:-2]
     n = cmax.shape[-2] * cmax.shape[-1]
-    vals, cidx = torch.sort(cmax.reshape(batch + (n,)), dim=-1,
-                            descending=True, stable=True)
-    vals, cidx = vals[..., :max_peaks], cidx[..., :max_peaks]
-    flat = torch.gather(cflat.reshape(batch + (n,)).long(), -1, cidx)
-    ys = torch.div(flat, width, rounding_mode="floor").float()
-    xs = torch.remainder(flat, width).float()
-    xy = torch.stack([xs, ys], dim=-1)
-    valid = torch.isfinite(vals)
-    valid = _suppress(xy, vals, valid, min_distance)
-    return Peaks(xy=xy, score=torch.where(valid, vals, torch.zeros_like(vals)),
-                 valid=valid)
+    return peaks_from_top(*top_cells(cmax.reshape(batch + (n,)),
+                                     cflat.reshape(batch + (n,)), max_peaks),
+                          width, min_distance)
 
 
 def cell_maxima(sp: torch.Tensor, cell: int = 8):
@@ -80,14 +97,20 @@ def cell_maxima(sp: torch.Tensor, cell: int = 8):
     return cval, cidx.int()
 
 
+def peak_field(score: torch.Tensor, threshold: float,
+               window: int) -> torch.Tensor:
+    """``score`` where it equals its ``window`` local maximum and exceeds
+    ``threshold``, else -inf: the field whose cell maxima are the peaks."""
+    local_max = max_filter(score, window)
+    is_peak = (score >= local_max) & (score > threshold)
+    return torch.where(is_peak, score, torch.full_like(score, -float("inf")))
+
+
 def find_peaks(score: torch.Tensor, threshold: float, window: int,
                max_peaks: int, min_distance: float, cell: int = 8) -> Peaks:
     """Up to ``max_peaks`` local maxima of ``score`` ``(..., H, W)``: pixels
     equal to their ``window`` local maximum and above ``threshold``, the
     best of each ``cell x cell`` tile, ranked and distance-suppressed."""
-    local_max = max_filter(score, window)
-    is_peak = (score >= local_max) & (score > threshold)
-    sp = torch.where(is_peak, score, torch.full_like(score, -float("inf")))
-    cmax, cflat = cell_maxima(sp, cell)
+    cmax, cflat = cell_maxima(peak_field(score, threshold, window), cell)
     return select_peaks_from_cells(cmax, cflat, score.shape[-1], max_peaks,
                                    min_distance)

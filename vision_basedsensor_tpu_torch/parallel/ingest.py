@@ -39,7 +39,7 @@ class ShardedPackedFeed:
             raise ValueError(
                 f"transport must be tdelta|split|packed, got {transport}")
         self.mesh = mesh
-        self._dec = MjpegBatchDecoder(device=mesh.devices[0])
+        self._dec = MjpegBatchDecoder(device=mesh.home)
         self._transport = transport
 
     @property
@@ -49,9 +49,12 @@ class ShardedPackedFeed:
 
     def decode_packed(self, jpegs: list[bytes]) -> ShardedFrames:
         """Batch of same-geometry JPEGs -> (B, H, W) float32 frames in one
-        block per mesh device. ``len(jpegs)`` must divide evenly by the
-        mesh (batch at a multiple of it; pad the final short chunk)."""
-        d = len(self.mesh.devices)
+        block per mesh device (on a spatial mesh, one rows block per
+        device; ``H`` must divide by ``spatial``). ``len(jpegs)`` must
+        divide evenly by the data axis (batch at a multiple of it; pad the
+        final short chunk)."""
+        grid, s = self.mesh.grid, self.mesh.spatial
+        d = len(grid)
         n = len(jpegs)
         if n % d != 0:
             raise ValueError(f"batch of {n} frames does not divide the data "
@@ -62,8 +65,16 @@ class ShardedPackedFeed:
         geo = {(s.height, s.width, s.grid) for s in shards}
         if len(geo) != 1:
             raise ValueError(f"geometry changed inside a batch: {geo}")
-        return ShardedFrames(tuple(self._expand(p, dev) for p, dev
-                                   in zip(shards, self.mesh.devices)), n)
+        h = shards[0].height
+        if h % s:
+            raise ValueError(f"{h} rows do not divide the spatial axis ({s})")
+        hs = h // s
+        blocks = []
+        for p, row in zip(shards, grid):
+            frames = self._expand(p, row[0])
+            blocks.extend(frames[:, j * hs:(j + 1) * hs].to(dev).contiguous()
+                          for j, dev in enumerate(row))
+        return ShardedFrames(tuple(blocks), n, s)
 
     def _expand(self, p, dev: torch.device) -> torch.Tensor:
         """One shard's payload -> its frames, decoded on ``dev``."""
