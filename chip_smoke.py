@@ -8,6 +8,8 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
     python3 chip_smoke.py --only window_sums [--baseline WS_CU ...] [--out FILE]
     python3 chip_smoke.py --only gather [--baseline GATHER_CU ...]
                           [--probe CUT_CU ...] [--out FILE]
+    python3 chip_smoke.py --only scans [--baseline SCAN_OR_ASSOCIATE_CU ...]
+                          [--probe CUT_CU ...] [--out FILE]
     python3 chip_smoke.py --only multi [--out FILE]
 
 ``--only fields`` runs phases 1-2 and then the fields kernel alone: it
@@ -61,6 +63,25 @@ rate the card reaches for these bytes) and two probes of the first design
 (``csrc/gather_probes.cu``: its stores alone, its loads alone; timed, not
 checked); ``--probe`` adds other sources with the ``vbs_gather_windows``
 entry, timed but not checked.
+
+``--only scans`` does the same for the two scan kernels (the displacement
+scan, ``csrc/displacement_scan.cu``, and the sequential association,
+``csrc/associate.cu``) on the main path's own inputs: 1024 rendered
+640x480 frames through ``process_frames`` give the positions and the
+detections (K=96; the first 64 frames again at K=97). Each version (a
+``--baseline`` goes to the scan or the association by the C entry it
+defines) is checked against its plain version at every shape of ONLY_SCAN
+(frames x 65 markers) and ONLY_ASSOC (frames x 65 slots x K), and at 1024
+frames resumed from the plain first half's carry: the association
+bit-equal, the scan's flags and copies bit-equal, norms within 1e-6 and
+cum within 1e-5. Then every version and each ``--probe`` (a source with
+either C entry, e.g. a design with a part cut out; timed, not checked) are
+timed on the C entry with the wrapper's prepared arguments, each call's
+return code checked, queued behind a sleeping kernel so the host's enqueue
+does not pace the card, in SCAN_ROUNDS rounds of turns (min/median/max),
+each beside its ns a frame, its dependency-chain floor, the bound and the
+plain version; and at each shape the host time a call of every version's
+``scan_args``/``assoc_args`` plus its C entry, and of the wrapper.
 
 ``--only multi`` runs phases 1-2 and then phases 11c and 11d alone (the
 ingest's first MULTI_FEED JPEGs rendered and encoded as phase 7 does): on
@@ -251,6 +272,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 # The main path's runs: (label, rows, cols, batch, max_candidates, backend).
 # The first two are the reference's bench sizes (bench.py:99-119,476 and
@@ -316,6 +338,18 @@ ONLY_WS = ((1080, 1920, 48, 96, False), (480, 640, 1024, 96, True))
 ONLY_GATHER = ((480, 640, 64, 97, 1), (1080, 1920, 48, 96, 2),
                (480, 640, 1024, 96, 2))
 GATHER_ROUNDS = 3
+# --only scans: the displacement scan's batches (x 65 markers): the flagship
+# batch, the stream's chunk, the 1080x1920 batch, run-live's --batch, 16,
+# indent's 13 frames, 8 and 4, tilt's 2, one request; the association's
+# (batch, max_candidates): the batch, the stream's chunk, run-live's
+# --batch, the odd K. SCAN_ROUNDS rounds of turns.
+ONLY_SCAN = (1024, 64, 48, 32, 16, 13, 8, 4, 2, 1)
+ONLY_ASSOC = ((1024, 96), (64, 96), (32, 96), (64, 97))
+SCAN_ROUNDS = 3
+# The full run's short scan cases, resumed from a carry: one frame, and the
+# two sides of csrc/displacement_scan.cu's SMALL_B (the walking kernel up
+# to it, the tiled one above).
+SCAN_SHORT = (1, 8, 9)
 # Window-sum slots that kernel and plain version give bit-equal: lo, hi and
 # the count of gated pixels.
 WS_EXACT_SLOTS = (21, 22, 23)
@@ -356,20 +390,50 @@ GATHER_PROBES = "vision_basedsensor_tpu_torch/csrc/gather_probes.cu"
 # a floor (PERF.md §6).
 DEP_CYCLES = 4
 # csrc/displacement_scan.cu: one instruction stands between a frame's carry
-# and the next frame's, the add `cum += dnz` (the carry's selects `if (ok)
-# lx = px` beside it); the norm and gate that give dnz feed no later carry.
+# and the next frame's, the walk's add `cum = cum + dnz` (the dnz loads are
+# off the chain, the next 16 issued while 16 are added). `last` and `first`
+# are no carry there: each frame finds its sightings in the tile's mask
+# words, in parallel over frames; the tile's staging and mask words come
+# before the walk, once a tile (1024 frames), and the per-frame work runs
+# beside it, a chunk of 128 frames ahead.
 SCAN_CHAIN = 1
+# csrc/associate.cu's LANES: lanes a slot, whatever the slot count.
+ASSOC_LANES = 4
 
 
-def _assoc_chain(k: int, n: int, lanes: int = 8) -> int:
-    """csrc/associate.cu, one frame: the first distance from the carry (2
-    subtractions in parallel, a product, a sum, sqrt's 4) 7; the lane's
-    compare-and-select chain over its ceil(k / lanes) candidates, 3 each; 3
-    shuffle rounds of (shuffle, 3-deep compare) 12; shared store, barrier,
-    loads 3; the owner tests' 3-deep compare then an OR chain over ceil(n /
-    lanes) slots; 3 shuffle rounds of (shuffle, test, or) 9; the flag, the
-    pick's load and the carry's select 3."""
-    return (7 + 3 * -(-k // lanes) + 12 + 3 + 3 + -(-n // lanes) + 9 + 3)
+def _assoc_chain(valid_counts) -> float:
+    """csrc/associate.cu (its fast path), a frame's dependent instructions,
+    the mean over frames with ``valid_counts`` valid detections each (the
+    walk reads only those): the first candidate's squared distance from
+    the carry (a subtraction, a product, the sum) 3; the lane's compare
+    chain over ceil(count / ASSOC_LANES) candidates, 2 each (the compare,
+    the select of the least square); log2(ASSOC_LANES) shuffle rounds of
+    (shuffle, 64-bit compare in 2, select) 4 each; the tie test (a product, a
+    compare, a vote) 3; the pick's staged position, the root of the least
+    square (4) and the key's pack (2) 7; the atomicMin's load and CAS, the
+    barrier, the owner's load and compare 5; the carry's select 1."""
+    lanes = ASSOC_LANES
+    per = [19 + 4 * int(math.log2(lanes)) + 2 * -(-int(c) // lanes)
+           for c in valid_counts]
+    return sum(per) / max(len(per), 1)
+
+
+def scan_bound(b: int, n: int) -> tuple[float, str]:
+    """The displacement scan's bound: world and seen read (13 B a
+    marker-frame), the six outputs written (37 B), the carry written (30 B
+    a marker); 3 subtractions and a 6-op norm twice, a compare and an add
+    (20 operations) a marker-frame."""
+    return _bound(b * n * (13 + 37) + 30 * n, 20 * b * n)
+
+
+def assoc_bound(b: int, n: int, k: int) -> tuple[float, str]:
+    """The association's bound: the detections read (xy 8, axes 8, angle 4,
+    valid 1 B), the table (9 B a slot), the outputs written (21 B a
+    slot-frame) and the carry (8 B a slot); 7 operations a (slot,
+    detection) for the distance and its compare, 1 a slot pair for the
+    owner test, a frame."""
+    return _bound(b * k * 21 + n * 9 + b * n * 21 + 8 * n,
+                  b * (7 * n * k + n * n))
 
 
 # The 640x480 B=1024 batch before the scans ran on the card (PERF.md §5,
@@ -399,8 +463,8 @@ def _chain_note(steps: int, chain: int) -> str:
     except ValueError:
         return f"dependency chain not computed (clocks.max.sm {out.stdout!r})"
     ms = 1e-3 * steps * chain * DEP_CYCLES / mhz
-    return (f"dependency chain {steps} steps x {chain} x {DEP_CYCLES} cycles "
-            f"at {mhz:.0f} MHz = {ms:.5f} ms")
+    return (f"dependency chain {steps} steps x {chain:g} x {DEP_CYCLES} "
+            f"cycles at {mhz:.0f} MHz = {ms:.5f} ms")
 
 
 def _event_ms(fn, iters: int) -> float:
@@ -410,6 +474,25 @@ def _event_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls queued behind a
+    sleeping kernel (100 us of SM cycles a call), so the host's enqueue
+    does not pace the card: for kernels shorter than their launch's host
+    cost. After one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -563,27 +646,28 @@ def main(argv=None) -> None:
                          "(torch.profiler): device time by kernel and the "
                          "device's busy share")
     ap.add_argument("--only", choices=("fields", "expand", "window_sums",
-                                       "gather", "multi"),
+                                       "gather", "scans", "multi"),
                     default=None,
                     help="check and time only the fields kernel, the "
-                         "sorted-expand kernel, the window-sums kernel or the "
-                         "window-gather kernel, or run only the data-parallel "
-                         "step and the spatial meshes (phases 11c-d)")
+                         "sorted-expand kernel, the window-sums kernel, the "
+                         "window-gather kernel or the two scan kernels, or "
+                         "run only the data-parallel step and the spatial "
+                         "meshes (phases 11c-d)")
     ap.add_argument("--baseline", action="append", default=None,
                     help="with --only: another version of that kernel's "
                          "source to check and time in turns with the current "
                          "kernel (repeatable)")
     ap.add_argument("--probe", action="append", default=None,
-                    help="with --only window_sums or gather: a source with "
-                         "that kernel's C entry that computes something "
-                         "else (a cut of a design), timed in turns but not "
-                         "checked (repeatable)")
+                    help="with --only window_sums, gather or scans: a "
+                         "source with that kernel's C entry that computes "
+                         "something else (a cut of a design), timed in "
+                         "turns but not checked (repeatable)")
     args = ap.parse_args(argv)
     if args.baseline and args.only in (None, "multi"):
-        ap.error("--baseline needs --only fields, expand, window_sums or "
-                 "gather")
-    if args.probe and args.only not in ("window_sums", "gather"):
-        ap.error("--probe needs --only window_sums or --only gather")
+        ap.error("--baseline needs --only fields, expand, window_sums, "
+                 "gather or scans")
+    if args.probe and args.only not in ("window_sums", "gather", "scans"):
+        ap.error("--probe needs --only window_sums, gather or scans")
 
     import numpy as np
     import torch
@@ -1236,37 +1320,61 @@ def main(argv=None) -> None:
                   flush=True)
         return rec
 
+    def scan_check(got, gfin, want, wfin, what) -> float:
+        """A scan version's outputs and final carry against the plain
+        version's: flags and copied values bit-equal, norms within 1e-6,
+        cum_path and cum within 1e-5. Returns the max abs error."""
+        tol = {"step_norm": 1e-6, "from_first_norm": 1e-6, "cum_path": 1e-5,
+               "cum": 1e-5}
+        e = 0.0
+        for k, a, w in [*zip(want._fields[2:], got, want[2:]),
+                        *((k, gfin[k], wfin[k]) for k in gfin)]:
+            d = max_err([a], [w]) if k in tol else 0.0
+            if a.shape != w.shape or (d > tol[k] if k in tol
+                                      else not torch.equal(a, w)):
+                raise AssertionError(f"displacement_scan {what}: {k} differs "
+                                     "from the plain version")
+            e = max(e, d)
+        return e
+
+    def assoc_check(got, glast, want, wlast, what) -> None:
+        """An association version's outputs and carry bit-equal to the plain
+        version's."""
+        for name, a, w in zip(("xy", "axes", "angle", "valid", "last"),
+                              (*got, glast),
+                              (want.xy, want.axes, want.angle, want.valid,
+                               wlast)):
+            if a.shape != w.shape or not torch.equal(a, w):
+                raise AssertionError(f"associate_sequential {what}: {name} "
+                                     "differs from the plain version")
+
     def scan_phase(world, seen, what, launches):
         """The displacement-scan kernel against its plain version on a
         run's own positions (all frames; the second half resumed from the
-        plain first half's carry; zero frames with a carry), then timed."""
+        plain first half's carry; zero frames with a carry; the first frame
+        alone, and the short batches of SCAN_SHORT resumed, which take the
+        walking kernel or the tiled one's smallest tile), then timed on its
+        C entry (device time, the host's enqueue hidden)."""
         rcfg = cfg.reconstruct
         max_step = rcfg.max_step_displacement_mm
         b, n = seen.shape
-        _, carry = displacement_scan_reference(world[:b // 2], seen[:b // 2],
-                                               rcfg, None, True)
+        h = b // 2
+        _, carry = displacement_scan_reference(world[:h], seen[:h], rcfg,
+                                               None, True)
         cases = {"all frames": (world, seen, None),
-                 "resumed": (world[b // 2:], seen[b // 2:], carry),
-                 "zero frames": (world[:0], seen[:0], carry)}
-        # Flags and copied values bit-equal; norms 1e-6, sums 1e-5.
-        tol = {"step_norm": 1e-6, "from_first_norm": 1e-6, "cum_path": 1e-5,
-               "cum": 1e-5}
+                 "resumed": (world[h:], seen[h:], carry),
+                 "zero frames": (world[:0], seen[:0], carry),
+                 "first frame": (world[:1], seen[:1], None)}
+        for m in SCAN_SHORT:
+            cases[f"{m} frames resumed"] = (world[h:h + m], seen[h:h + m],
+                                            carry)
         err = 0.0
         for case, (wx, sx, c) in cases.items():
             got, gfin = kscan.displacement_scan(wx.contiguous(),
                                                 sx.contiguous(), max_step, c)
             want, wfin = displacement_scan_reference(wx, sx, rcfg, c, True)
             torch.cuda.synchronize()
-            pairs = [*zip(want._fields[2:], got, want[2:]),
-                     *((k, gfin[k], wfin[k]) for k in gfin)]
-            e = 0.0
-            for k, a, w in pairs:
-                d = max_err([a], [w]) if k in tol else 0.0
-                if a.shape != w.shape or (d > tol[k] if k in tol
-                                          else not torch.equal(a, w)):
-                    raise AssertionError(f"displacement_scan {what} {case}: "
-                                         f"{k} differs from the plain version")
-                e = max(e, d)
+            e = scan_check(got, gfin, want, wfin, f"{what} {case}")
             if c is not None and len(wx) == 0 and not all(
                     torch.equal(gfin[k], c[k]) for k in c):
                 raise AssertionError(f"displacement_scan {what}: zero frames "
@@ -1275,17 +1383,17 @@ def main(argv=None) -> None:
             print(f"check displacement_scan {what} {case}: flags and copies "
                   f"equal, norms and cum_path within 1e-6/1e-5 (max abs err "
                   f"{e})", flush=True)
-        ms = _event_ms(lambda: kscan.displacement_scan(world, seen, max_step,
-                                                       None), 20)
+        prep = kscan.scan_args(world, seen, max_step, None)
+        entry = build.library().vbs_displacement_scan
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = _device_ms(lambda: build.check(entry(*prep[0], stream),
+                                            "displacement_scan launch"), 50)
         plain_ms = _event_ms(lambda: displacement_scan_reference(
             world, seen, rcfg), 1)
-        # Bytes: world and seen read (13 B a marker-frame), the six outputs
-        # written (37 B), the carry written (30 B a marker). Operations per
-        # marker-frame: 3 subtractions and a 6-op norm twice, a compare and
-        # an add (20).
-        bound = _bound(b * n * (13 + 37) + 30 * n, 20 * b * n)
-        print(f"displacement_scan {what}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
+        bound = scan_bound(b, n)
+        print(f"displacement_scan {what}: kernel {ms:.4f} ms "
+              f"({1e6 * ms / b:.1f} ns a frame), plain {plain_ms:.3f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]}); "
               f"{_chain_note(b, SCAN_CHAIN)} [{card}]", flush=True)
         record(f"displacement_scan {what}", "scan", SRC["scan"][1], launches,
                err, ms, plain_ms, bound)
@@ -1295,7 +1403,8 @@ def main(argv=None) -> None:
     def assoc_phase(ref, det, gate, what, launches):
         """The association kernel against its plain version on a run's own
         detections (all frames; the second half resumed from the plain
-        first half's carry; zero frames with a carry), then timed."""
+        first half's carry; zero frames with a carry), then timed on its C
+        entry (device time, the host's enqueue hidden)."""
         b, k = det.valid.shape
         n = ref.xy.shape[0]
         half = type(det)(*(x[:b // 2] for x in det[:5]))
@@ -1307,34 +1416,26 @@ def main(argv=None) -> None:
             got, glast = kscan.associate_sequential(ref, d, gate, c)
             want, wlast = associate_sequential_reference(ref, d, gate, c, True)
             torch.cuda.synchronize()
-            for name, a, w in zip(("xy", "axes", "angle", "valid", "last"),
-                                  (*got, glast),
-                                  (want.xy, want.axes, want.angle, want.valid,
-                                   wlast)):
-                if a.shape != w.shape or not torch.equal(a, w):
-                    raise AssertionError(f"associate_sequential {what} {case}:"
-                                         f" {name} differs from the plain "
-                                         "version")
+            assoc_check(got, glast, want, wlast, f"{what} {case}")
             print(f"check associate_sequential {what} {case}: equal to the "
                   f"plain version ({int(got[3].sum())} of {got[3].numel()} "
                   f"slots valid)", flush=True)
         if not torch.equal(glast, carry):
             raise AssertionError("associate_sequential: zero frames changed "
                                  "the carry")
-        ms = _event_ms(lambda: kscan.associate_sequential(ref, det, gate,
-                                                          None), 20)
+        prep = kscan.assoc_args(ref, det, gate, None)
+        entry = build.library().vbs_associate_sequential
+        stream = torch.cuda.current_stream().cuda_stream
+        ms = _device_ms(lambda: build.check(entry(*prep[0], stream),
+                                            "associate_sequential launch"), 10)
         plain_ms = _event_ms(lambda: associate_sequential_reference(
             ref, det, gate), 1)
-        # Bytes: the detections read (xy 8, axes 8, angle 4, valid 1 B), the
-        # table (9 B a slot), the outputs written (21 B a slot-frame) and
-        # the carry (8 B a slot). Operations a frame: 7 per (slot,
-        # detection) for the distance and its compare, 1 per slot pair for
-        # the owner test.
-        bound = _bound(b * k * 21 + n * 9 + b * n * 21 + 8 * n,
-                       b * (7 * n * k + n * n))
-        print(f"associate_sequential {what}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}); "
-              f"{_chain_note(b, _assoc_chain(k, n))} [{card}]", flush=True)
+        bound = assoc_bound(b, n, k)
+        chain = _assoc_chain(det.valid.sum(1).tolist())
+        print(f"associate_sequential {what}: kernel {ms:.4f} ms "
+              f"({1e6 * ms / b:.1f} ns a frame), plain {plain_ms:.3f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]}); "
+              f"{_chain_note(b, chain)} [{card}]", flush=True)
         record(f"associate_sequential {what}", "associate",
                SRC["associate"][1], launches, 0.0, ms, plain_ms, bound)
         return {"ms": ms, "plain_ms": plain_ms, "bound": bound}
@@ -3647,6 +3748,228 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
         return rec
 
+    def host_us(fn, reps=200) -> float:
+        """Host microseconds a call of ``fn`` (its enqueue), over ``reps``
+        calls after a warm-up; the card catches up after."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return 1e6 * dt / reps
+
+    def turns_ms(fns, iters):
+        """Each of ``fns`` (``{name: fn}``, the current kernel "kernel")
+        timed with _device_ms in SCAN_ROUNDS rounds of turns (the others,
+        the kernel twice, the others back): ``{name: [ms, ...]}``."""
+        others = [x for x in fns if x != "kernel"]
+        order = [*others, "kernel", "kernel", *reversed(others)]
+        out: dict = {who: [] for who in fns}
+        for _ in range(SCAN_ROUNDS):
+            for who in order:
+                out[who].append(_device_ms(fns[who], iters))
+        return out
+
+    def turns_line(turns, frames, floor_ns) -> str:
+        return "; ".join(
+            f"{who} min/median/max {min(t):.5f}/{statistics.median(t):.5f}/"
+            f"{max(t):.5f} ms ({1e6 * statistics.median(t) / frames:.1f} ns a "
+            f"frame, {statistics.median(t) * 1e6 / frames / floor_ns:.1f}x "
+            "the chain floor)" for who, t in turns.items())
+
+    def chain_floor_ns(chain) -> float:
+        """ns a frame of ``chain`` dependent instructions at DEP_CYCLES each
+        at the card's top SM clock (nan where nvidia-smi gives none)."""
+        out = subprocess.run(["nvidia-smi", "--id=0",
+                              "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True)
+        try:
+            return 1e3 * chain * DEP_CYCLES / float(out.stdout.strip())
+        except ValueError:
+            return float("nan")
+
+    def scans_only_phase():
+        """--only scans: each version of the scan and association kernels
+        (the current one and each --baseline) against its plain version at
+        every shape of ONLY_SCAN and ONLY_ASSOC on the flagship batch's own
+        positions and detections, then timed with each --probe; the host
+        time a call of each version and of the wrapper. No main-path run
+        counted."""
+        lib = build.library()
+        scan_v = {"kernel": lib.vbs_displacement_scan}
+        assoc_v = {"kernel": lib.vbs_associate_sequential}
+        scan_p, assoc_p = {}, {}
+        alts = []   # (versions, name, source, entry), built together
+        for flag, srcs, sv, av, pre in (
+                ("--baseline", args.baseline, scan_v, assoc_v, ""),
+                ("--probe", args.probe, scan_p, assoc_p, "probe ")):
+            for src in srcs or ():
+                with open(src) as f:
+                    text = f.read()
+                name = pre + os.path.basename(src)
+                if "vbs_displacement_scan(" in text:
+                    alts.append((sv, name, src, "vbs_displacement_scan"))
+                elif "vbs_associate_sequential(" in text:
+                    alts.append((av, name, src, "vbs_associate_sequential"))
+                else:
+                    raise SystemExit(f"chip_smoke: {flag} {src} defines "
+                                     "neither scan entry")
+        with ThreadPoolExecutor(max(len(alts), 1)) as pool:   # one nvcc each
+            built = list(pool.map(lambda a: _build_alt(a[2], a[3]), alts))
+        for (versions, name, _, _), fn in zip(alts, built):
+            versions[name] = fn
+        res = subprocess.run([os.path.join(os.path.dirname(build._nvcc()),
+                                           "cuobjdump"), "-res-usage",
+                              str(build.library_path())],
+                             capture_output=True, text=True)
+        on = False
+        for line in res.stdout.splitlines():   # the two kernels' resources
+            if "Function" in line:
+                on = "displacement_scan" in line or "associate" in line
+            if on and "REG" in line:
+                print(f"  cuobjdump -res-usage: {line.strip()}")
+        rcfg = cfg.reconstruct
+        max_step = rcfg.max_step_displacement_mm
+        gate = cfg.track.min_marker_distance_px
+        stream = torch.cuda.current_stream().cuda_stream
+        spin = 20_000_000
+        spin_ms = _event_ms(lambda: torch.cuda._sleep(spin), 3)
+        print(f"scans: SM clock {spin / spin_ms / 1e3:.0f} MHz (a spin of "
+              f"{spin} cycles took {spin_ms:.3f} ms) [{card}]", flush=True)
+        frames_n = max(*ONLY_SCAN, *(b for b, _ in ONLY_ASSOC))
+        scene, frames = render(480, 640, frames_n)
+        ref = initialize(frames[0], cfg)
+        out = process_frames(frames, ref, scene.cam, cfg)
+        world = out.recon.world.contiguous()
+        seen = out.recon.seen.contiguous()
+        dets = {dcfg.max_candidates: out.detections}
+        for b, k in ONLY_ASSOC:
+            if k not in dets:
+                kcfg = dataclasses.replace(cfg, detect=dataclasses.replace(
+                    dcfg, max_candidates=k))
+                dets[k] = process_frames(frames[:b], ref, scene.cam,
+                                         kcfg).detections
+        del frames, out
+        torch.cuda.empty_cache()
+        n = world.shape[1]
+        rec: dict = {"scan": {}, "associate": {}}
+        names = " and ".join(
+            [", ".join(scan_v), ", ".join(assoc_v)])
+        print(f"scans: versions {names}; positions and detections of "
+              f"{frames_n} rendered 640x480 frames [{card}]", flush=True)
+
+        for b in ONLY_SCAN:
+            w, sx = world[:b], seen[:b]
+            cases = [("fresh", w, sx, None)]
+            if b == max(ONLY_SCAN):
+                _, c = displacement_scan_reference(w[:b // 2], sx[:b // 2],
+                                                   rcfg, None, True)
+                cases.append(("resumed", w[b // 2:], sx[b // 2:], c))
+            err = 0.0
+            for case, wx, sxx, c in cases:
+                want, wfin = displacement_scan_reference(wx, sxx, rcfg, c,
+                                                         True)
+                for name, entry in scan_v.items():
+                    a, got, gfin = kscan.scan_args(wx, sxx, max_step, c)
+                    build.check(entry(*a, stream), f"scan {name} launch")
+                    torch.cuda.synchronize()
+                    e = scan_check(got, gfin, want, wfin,
+                                   f"{name} {b}x{n} {case}")
+                    err = max(err, e) if name == "kernel" else err
+                print(f"check displacement_scan {b}x{n} {case}: "
+                      f"{', '.join(scan_v)} flags and copies equal, norms "
+                      f"and cum within 1e-6/1e-5 (kernel max abs err {err})",
+                      flush=True)
+            prep = kscan.scan_args(w, sx, max_step, None)
+            fns = {who: (lambda e=e, who=who: build.check(
+                e(*prep[0], stream), f"scan {who} launch"))
+                for who, e in {**scan_v, **scan_p}.items()}
+            turns = turns_ms(fns, 50)
+            wrap_us = {who: host_us(lambda e=e, who=who: build.check(
+                e(*kscan.scan_args(w, sx, max_step, None)[0], stream),
+                f"scan {who} launch")) for who, e in scan_v.items()}
+            wrap_us["wrapper"] = host_us(lambda: kscan.displacement_scan(
+                w, sx, max_step, None))
+            plain_ms = _event_ms(lambda: displacement_scan_reference(
+                w, sx, rcfg), 1)
+            bound = scan_bound(b, n)
+            ms = statistics.median(turns["kernel"])
+            print(f"displacement_scan {b}x{n}: {turns_line(turns, b, chain_floor_ns(SCAN_CHAIN))}; "
+                  f"plain {plain_ms:.3f} ms; bound {bound[0]:.5f} ms "
+                  f"({bound[1]}); {_chain_note(b, SCAN_CHAIN)}; host us "
+                  f"a call (scan_args + C entry; the wrapper): " + ", ".join(
+                      f"{who} {u:.1f}" for who, u in wrap_us.items())
+                  + f" [{card}]", flush=True)
+            rec["scan"][f"{b}x{n}"] = {"turns_ms": turns, "plain_ms": plain_ms,
+                                      "bound": bound, "max_abs_err": err,
+                                      "wrapper_host_us": wrap_us}
+            record(f"displacement_scan {b}x{n}", "scan", SRC["scan"][1], 0,
+                   err, ms, plain_ms, bound, baseline_ms={
+                       who: statistics.median(t) for who, t in turns.items()
+                       if who != "kernel"})
+            del prep
+
+        for b, k in ONLY_ASSOC:
+            det = dets[k]
+            det = type(det)(*(x[:b] for x in det[:5]))
+            cases = [("fresh", det, None)]
+            if b == max(x for x, _ in ONLY_ASSOC):
+                half = type(det)(*(x[:b // 2] for x in det[:5]))
+                _, c = associate_sequential_reference(ref, half, gate, None,
+                                                      True)
+                cases.append(("resumed", type(det)(*(x[b // 2:]
+                                                     for x in det[:5])), c))
+            for case, d, c in cases:
+                want, wlast = associate_sequential_reference(ref, d, gate, c,
+                                                             True)
+                for name, entry in assoc_v.items():
+                    a, got, glast = kscan.assoc_args(ref, d, gate, c)
+                    build.check(entry(*a, stream), f"associate {name} launch")
+                    torch.cuda.synchronize()
+                    assoc_check(got, glast, want, wlast,
+                                f"{name} {b}x{n} K={k} {case}")
+                print(f"check associate_sequential {b}x{n} K={k} {case}: "
+                      f"{', '.join(assoc_v)} equal to the plain version "
+                      f"({int(want.valid.sum())} of {want.valid.numel()} "
+                      "slots valid)", flush=True)
+            prep = kscan.assoc_args(ref, det, gate, None)
+            fns = {who: (lambda e=e, who=who: build.check(
+                e(*prep[0], stream), f"associate {who} launch"))
+                for who, e in {**assoc_v, **assoc_p}.items()}
+            turns = turns_ms(fns, 10 if b > 64 else 30)
+            wrap_us = {who: host_us(lambda e=e, who=who: build.check(
+                e(*kscan.assoc_args(ref, det, gate, None)[0], stream),
+                f"associate {who} launch")) for who, e in assoc_v.items()}
+            wrap_us["wrapper"] = host_us(lambda: kscan.associate_sequential(
+                ref, det, gate, None))
+            plain_ms = _event_ms(lambda: associate_sequential_reference(
+                ref, det, gate), 1)
+            bound = assoc_bound(b, n, k)
+            cnt = det.valid.sum(1).tolist()
+            chain = _assoc_chain(cnt)
+            ms = statistics.median(turns["kernel"])
+            print(f"associate_sequential {b}x{n} K={k} ({sum(cnt) / b:.1f} "
+                  f"valid detections a frame): "
+                  f"{turns_line(turns, b, chain_floor_ns(chain))}; plain "
+                  f"{plain_ms:.3f} ms; bound {bound[0]:.5f} ms ({bound[1]});"
+                  f" {_chain_note(b, chain)}; host us a call (assoc_args +"
+                  " C entry; the wrapper): " + ", ".join(
+                      f"{who} {u:.1f}" for who, u in wrap_us.items())
+                  + f" [{card}]", flush=True)
+            rec["associate"][f"{b}x{n} K={k}"] = {
+                "turns_ms": turns, "plain_ms": plain_ms, "bound": bound,
+                "chain": chain, "wrapper_host_us": wrap_us}
+            record(f"associate_sequential {b}x{n} K={k}", "associate",
+                   SRC["associate"][1], 0, 0.0, ms, plain_ms, bound,
+                   baseline_ms={who: statistics.median(t)
+                                for who, t in turns.items()
+                                if who != "kernel"})
+            del prep
+        return rec
+
     def finish():
         records["kernels"] = kernels
         if args.out:
@@ -3673,6 +3996,10 @@ def main(argv=None) -> None:
         return
     if args.only == "gather":
         records["phases"]["gather"] = gather_only_phase()
+        finish()
+        return
+    if args.only == "scans":
+        records["phases"]["scans"] = scans_only_phase()
         finish()
         return
     if args.only == "multi":

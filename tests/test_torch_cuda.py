@@ -571,7 +571,7 @@ def _assoc_inputs(rng, b, k, dev, n=65):
     g = np.stack(np.meshgrid(np.arange(12), np.arange(12)), -1).reshape(-1, 2)
     ref_xy = g[:n] * 30.0 + 40.0
     ref_valid = np.ones(n, bool)
-    ref_valid[7] = False
+    ref_valid[7 % n] = n <= 7
     xy = np.empty((b, k, 2))
     for t in range(b):
         pts = np.concatenate([ref_xy + [0.5 * t, 0.0]
@@ -650,6 +650,169 @@ def test_scan_wrappers_refuse_bad_inputs(cuda):
                                        n=kscan.MAX_SLOTS + 1)
     with pytest.raises(ValueError):
         kscan.associate_sequential(many_ref, many_det, 20.0)
+
+
+def _scan_against_plain(cuda, world, seen, carry):
+    """One kernel launch against the plain loop: flags and copies
+    bit-equal, norms within 1e-6, cum_path and cum within 1e-5."""
+    from vision_basedsensor_tpu_torch.config import ReconstructConfig
+    from vision_basedsensor_tpu_torch.reconstruct.displacement import (
+        displacement_scan, displacement_scan_reference)
+
+    cfg = ReconstructConfig()
+    got, gfin = displacement_scan(world, seen, cfg, carry, return_carry=True)
+    want, wfin = displacement_scan_reference(world, seen, cfg, carry, True)
+    torch.cuda.synchronize()
+    for name in ("step", "step_valid", "from_first"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.shape == w.shape and torch.equal(a, w), name
+    for name, tol in (("step_norm", 1e-6), ("from_first_norm", 1e-6),
+                      ("cum_path", 1e-5)):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   atol=tol, rtol=0, msg=name)
+    for k in ("last", "last_ok", "first", "first_ok"):
+        assert torch.equal(gfin[k], wfin[k]), k
+    torch.testing.assert_close(gfin["cum"], wfin["cum"], atol=1e-5, rtol=0)
+    return got, gfin
+
+
+@pytest.mark.parametrize("b", [8, 9, 1023, 1024, 1025, 2049])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_displacement_scan_kernel_across_tiles(cuda, b, with_carry):
+    """Batches on either side of the walking kernel's 8 frames and of the
+    tiled kernel's 1024-frame tile: the carry crosses tiles in shared
+    memory, as the plain loop carries it."""
+    world, seen, carry = _scan_inputs(np.random.default_rng(70 + b), b, 65,
+                                      cuda, with_carry)
+    _scan_against_plain(cuda, world, seen, carry)
+
+
+@pytest.mark.parametrize("n", [1, 128])
+def test_displacement_scan_kernel_marker_counts(cuda, n):
+    """One marker (a block with 3 idle marker slots) and 128 markers."""
+    world, seen, carry = _scan_inputs(np.random.default_rng(80 + n), 300, n,
+                                      cuda, True)
+    _scan_against_plain(cuda, world, seen, carry)
+
+
+def test_displacement_scan_kernel_unseen_markers(cuda):
+    """A marker never seen (fresh and with a carry that never saw it), one
+    seen only in the carry, one seen only in the last frame of a tile and
+    one only in the first frame of the next: their outputs and carries
+    equal the plain loop's."""
+    world, seen, carry = _scan_inputs(np.random.default_rng(90), 1100, 65,
+                                      cuda, True)
+    seen[:, :4] = False
+    seen[1023, 2] = True
+    seen[1024, 3] = True
+    carry["last_ok"][0] = carry["first_ok"][0] = False
+    carry["last_ok"][1] = carry["first_ok"][1] = True
+    world = torch.where(seen[..., None], world, torch.zeros_like(world))
+    got, gfin = _scan_against_plain(cuda, world, seen, carry)
+    assert not bool(got.step_valid[:, :2].any())
+    assert torch.equal(gfin["last"][1], carry["last"][1])
+    _, fresh = _scan_against_plain(cuda, world, seen, None)
+    assert not bool(fresh["last_ok"][0]) and not bool(fresh["first_ok"][1])
+
+
+def _assoc_against_plain(ref, det, gate, carry=None):
+    """One kernel launch bit-equal to the plain loop; returns its result."""
+    from vision_basedsensor_tpu_torch.track.associate import (
+        associate_sequential, associate_sequential_reference)
+
+    got, glast = associate_sequential(ref, det, gate, carry_xy=carry,
+                                      return_carry=True)
+    want, wlast = associate_sequential_reference(ref, det, gate, carry, True)
+    torch.cuda.synchronize()
+    for name in ("xy", "axes", "angle", "valid"):
+        a, w = getattr(got, name), getattr(want, name)
+        assert a.shape == w.shape and torch.equal(a, w), name
+    # A NaN in the given carry stays where no detection is taken.
+    assert torch.equal(glast.isnan(), wlast.isnan())
+    assert torch.equal(glast.nan_to_num(), wlast.nan_to_num())
+    return got
+
+
+@pytest.mark.parametrize("n,k", [(1, 96), (128, 96), (65, 1), (65, 1024)])
+def test_associate_kernel_slot_and_detection_counts(cuda, n, k):
+    """One slot, 128 slots (4 lanes a slot), one detection a frame and
+    1024 (two frames a staged run)."""
+    b = 40
+    rng = np.random.default_rng(100 + n + k)
+    ref, det = _assoc_inputs(rng, b, max(k, n), cuda, n=n)
+    if k < n:
+        det = det._replace(**{f: getattr(det, f)[:, :k].contiguous()
+                              for f in ("xy", "axes", "angle", "score",
+                                        "valid")})
+    _assoc_against_plain(ref, det, 20.0, ref.xy + 1.0)
+
+
+def test_associate_kernel_nan_detections(cuda):
+    """Detections with a NaN coordinate marked valid: NaN counts as the
+    least distance, so the slots near one pick it and are not valid, and
+    the first of them (by index) keeps the pick from the others."""
+    ref, det = _assoc_inputs(np.random.default_rng(110), 30, 96, cuda)
+    xy = det.xy.clone()
+    xy[::3, 5, 0] = float("nan")
+    xy[1::3, 9, 1] = float("nan")
+    xy[::2, 40] = float("nan")
+    valid = det.valid.clone()
+    valid[:, [5, 9, 40]] = True
+    got = _assoc_against_plain(ref, det._replace(xy=xy, valid=valid), 20.0)
+    assert not bool(got.valid[::2].any())
+
+
+def test_associate_kernel_infinite_gate_and_nan_carry(cuda):
+    """gate = +inf, with frames whose detections are all invalid (every
+    distance inf: slot 0 owns index 0 and takes its unstaged values), and
+    a carry with NaN and inf entries (those slots take the NaN-aware
+    compare): bit-equal to the plain loop."""
+    ref, det = _assoc_inputs(np.random.default_rng(130), 12, 96, cuda)
+    valid = det.valid.clone()
+    valid[3] = False
+    valid[7, 1:] = False
+    det = det._replace(valid=valid)
+    _assoc_against_plain(ref, det, float("inf"))
+    carry = ref.xy + 1.0
+    carry[2, 0] = float("nan")
+    carry[5, 1] = float("inf")
+    _assoc_against_plain(ref, det, 20.0, carry)
+    _assoc_against_plain(ref, det, float("inf"), carry)
+
+
+def test_associate_kernel_ties(cuda):
+    """Equal squared distances (a candidate mirrored about the slot), and
+    squared distances that differ by one ulp but give the same sqrtf: in
+    both, the lower index wins, in the same lane and across lanes."""
+    n, k, b = 65, 96, 6
+    rng = np.random.default_rng(120)
+    ref, det = _assoc_inputs(rng, b, k, cuda)
+    last = np.round(ref.xy.cpu().numpy() + 2.0).astype(np.float32)
+    xy = np.asarray(rng.random((b, k, 2)) * 4000.0 + 6000.0, np.float32)
+    valid = np.ones((b, k), bool)
+    e = np.float32(np.sqrt(np.spacing(np.float32(100.0))))
+    cur = last.copy()   # the carry each frame starts from
+    for t in range(b):
+        for s in range(0, 60, 6):
+            lo, hi = s + t % 3, s + t % 3 + (8 if t % 2 else 1)
+            if t < 3:   # mirrored: equal squares, the higher index first
+                xy[t, hi] = cur[s] + [3.0, 4.0]
+                xy[t, lo] = cur[s] - [3.0, 4.0]
+            else:       # one ulp apart: the lower index the larger square
+                xy[t, hi] = cur[s] + [10.0, 0.0]
+                xy[t, lo] = cur[s] + [10.0, e]
+            d = cur[s] - xy[t, [lo, hi]]
+            sq = (d[:, 0] * d[:, 0]) + (d[:, 1] * d[:, 1])
+            assert np.sqrt(sq[0]) == np.sqrt(sq[1])
+            assert sq[0] == sq[1] if t < 3 else sq[0] > sq[1]
+            cur[s] = xy[t, lo]
+    f = dict(dtype=torch.float32, device=cuda)
+    det = det._replace(xy=torch.as_tensor(xy, **f),
+                       valid=torch.as_tensor(valid, device=cuda))
+    got = _assoc_against_plain(ref, det, 20.0, torch.as_tensor(last, **f))
+    for t in range(b):
+        for s in range(0, 60, 6):
+            assert torch.equal(got.xy[t, s], det.xy[t, s + t % 3]), (t, s)
 
 
 @pytest.mark.parametrize("transport", ["tdelta", "split", "packed"])

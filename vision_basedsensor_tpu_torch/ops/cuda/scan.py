@@ -43,13 +43,11 @@ def _cuda_device(x: torch.Tensor, fn: str) -> torch.device:
     return x.device
 
 
-def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
-                      max_step_mm: float, carry: dict | None = None):
-    """One launch of the displacement scan over ``world (B, N, 3)`` float32
-    and ``seen (B, N)`` bool. Returns ``(step, step_norm, step_valid,
-    cum_path, from_first, from_first_norm)`` and the final carry (the
-    ``initial_carry`` schema); ``carry=None`` starts from the fresh state."""
-    global scan_launches
+def scan_args(world: torch.Tensor, seen: torch.Tensor, max_step_mm: float,
+              carry: dict | None = None):
+    """Check :func:`displacement_scan`'s inputs and allocate its outputs:
+    ``(args, out, final)``, ``args`` the C entry's arguments but the stream
+    (``chip_smoke.py`` times other versions of the entry on them)."""
     dev = _cuda_device(world, "displacement_scan")
     if world.ndim != 3 or world.shape[2] != 3:
         raise ValueError(f"displacement_scan: world must be (B, N, 3), got "
@@ -75,27 +73,33 @@ def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
              for key, (dt, shape) in schema.items()}
     cin = ([None] * 5 if carry is None
            else [carry[key].data_ptr() for key in schema])
+    args = (world.data_ptr(), seen.data_ptr(), b, n, float(max_step_mm), *cin,
+            *(t.data_ptr() for t in out),
+            *(t.data_ptr() for t in final.values()))
+    return args, out, final
+
+
+def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
+                      max_step_mm: float, carry: dict | None = None):
+    """One launch of the displacement scan over ``world (B, N, 3)`` float32
+    and ``seen (B, N)`` bool. Returns ``(step, step_norm, step_valid,
+    cum_path, from_first, from_first_norm)`` and the final carry (the
+    ``initial_carry`` schema); ``carry=None`` starts from the fresh state."""
+    global scan_launches
+    args, out, final = scan_args(world, seen, max_step_mm, carry)
     lib = build.library()
-    with torch.cuda.device(dev):   # build.py: launches go to it
+    with torch.cuda.device(world.device):   # build.py: launches go to it
         err = lib.vbs_displacement_scan(
-            world.data_ptr(), seen.data_ptr(), b, n, float(max_step_mm),
-            *cin, *(t.data_ptr() for t in out),
-            *(t.data_ptr() for t in final.values()),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *args, torch.cuda.current_stream(world.device).cuda_stream)
     build.check(err, "displacement_scan kernel launch")
     scan_launches += 1
     return out, final
 
 
-def associate_sequential(ref, det, gate_px: float,
-                         carry_xy: torch.Tensor | None = None):
-    """One launch of the sequential association over ``det``'s frames
-    (``xy``/``axes`` ``(B, K, 2)``, ``angle`` ``(B, K)`` float32, ``valid``
-    ``(B, K)`` bool) against ``ref`` (``xy (N, 2)``, ``valid (N,)``).
-    Returns ``(xy, axes, angle, valid)`` per frame and slot, and the final
-    last-seen positions ``(N, 2)``; ``carry_xy=None`` starts from
-    ``ref.xy``. N <= MAX_SLOTS and 1 <= K <= MAX_DETECTIONS."""
-    global assoc_launches
+def assoc_args(ref, det, gate_px: float,
+               carry_xy: torch.Tensor | None = None):
+    """Check :func:`associate_sequential`'s inputs and allocate its outputs:
+    ``(args, out, last)``, ``args`` the C entry's arguments but the stream."""
     dev = _cuda_device(ref.xy, "associate_sequential")
     n = ref.xy.shape[0]
     if det.valid.ndim != 2:
@@ -121,14 +125,27 @@ def associate_sequential(ref, det, gate_px: float,
            torch.empty((b, n), dtype=f32, device=dev),
            torch.empty((b, n), dtype=torch.bool, device=dev))
     last = torch.empty((n, 2), dtype=f32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):   # build.py: launches go to it
-        err = lib.vbs_associate_sequential(
-            ref.xy.data_ptr(), ref.valid.data_ptr(), det.xy.data_ptr(),
+    args = (ref.xy.data_ptr(), ref.valid.data_ptr(), det.xy.data_ptr(),
             det.axes.data_ptr(), det.angle.data_ptr(), det.valid.data_ptr(),
             None if carry_xy is None else carry_xy.data_ptr(), b, n, k,
-            float(gate_px), *(t.data_ptr() for t in out), last.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            float(gate_px), *(t.data_ptr() for t in out), last.data_ptr())
+    return args, out, last
+
+
+def associate_sequential(ref, det, gate_px: float,
+                         carry_xy: torch.Tensor | None = None):
+    """One launch of the sequential association over ``det``'s frames
+    (``xy``/``axes`` ``(B, K, 2)``, ``angle`` ``(B, K)`` float32, ``valid``
+    ``(B, K)`` bool) against ``ref`` (``xy (N, 2)``, ``valid (N,)``).
+    Returns ``(xy, axes, angle, valid)`` per frame and slot, and the final
+    last-seen positions ``(N, 2)``; ``carry_xy=None`` starts from
+    ``ref.xy``. N <= MAX_SLOTS and 1 <= K <= MAX_DETECTIONS."""
+    global assoc_launches
+    args, out, last = assoc_args(ref, det, gate_px, carry_xy)
+    lib = build.library()
+    with torch.cuda.device(ref.xy.device):   # build.py: launches go to it
+        err = lib.vbs_associate_sequential(
+            *args, torch.cuda.current_stream(ref.xy.device).cuda_stream)
     build.check(err, "associate_sequential kernel launch")
     assoc_launches += 1
     return out, last
