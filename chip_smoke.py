@@ -223,8 +223,8 @@ and prints no result line):
      normxcorr_gaussian(binary_input=False) on an EXTRAS_BATCH 640x480
      batch and contact_signal on phase 4's reconstruction, each on the card
      against the same call on the CPU within its stated tolerance, with no
-     kernel launched; StageTimer around one batch and profile_to's trace
-     holding the trace_annotation span. (c) the data-parallel step
+     kernel launched; profile_to's trace of one batch holding the program's
+     spans. (c) the data-parallel step
      (parallel/) over every visible card, or two shards in turn on one
      card: the MULTI_BATCH 640x480 frames against single-device
      process_frames (seen equal, world and cum_path within 1e-4,
@@ -2588,15 +2588,13 @@ def main(argv=None) -> None:
 
     def extras_phase(workdir, recon4):
         """Phase 11b: the library extras on the card against the same calls
-        on the CPU, with no kernel launched; StageTimer around one batch
-        and profile_to's trace of a trace_annotation span."""
+        on the CPU, with no kernel launched; profile_to's trace of one
+        batch holding the program's spans."""
         from vision_basedsensor_tpu_torch.analysis.dynamics import \
             contact_signal
         from vision_basedsensor_tpu_torch.core.fit import ellipse_from_moments
         from vision_basedsensor_tpu_torch.core.imaging import box_sum
         from vision_basedsensor_tpu_torch.pipeline import _to
-        from vision_basedsensor_tpu_torch.utils import (StageTimer,
-                                                        trace_annotation)
         from vision_basedsensor_tpu_torch.utils.profiling import profile_to
 
         b = EXTRAS_BATCH
@@ -2660,25 +2658,21 @@ def main(argv=None) -> None:
                                      f"or launched a kernel")
         ref = initialize(frames[0], cfg)
         process_frames(frames, ref, scene.cam, cfg)           # warm-up
-        timer = StageTimer()
         logdir = os.path.join(workdir, "trace")
-        held: list = []       # block_on is read when the stage ends
         with profile_to(logdir) as prof_:
-            with trace_annotation("vbs.process_frames"):
-                with timer.stage("process_frames", block_on=held):
-                    held.append(process_frames(frames, ref, scene.cam, cfg))
+            process_frames(frames, ref, scene.cam, cfg)
+            torch.cuda.synchronize()
         with open(os.path.join(logdir, "trace.json")) as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}
         dev_ms = sum(e.device_time_total for e in prof_.key_averages()) / 1e3
-        rec.update(stage_ms=1e3 * timer.totals["process_frames"],
-                   trace_has_annotation="vbs.process_frames" in names,
+        span = "vbs.pipeline.process_frames"
+        rec.update(trace_has_annotation=span in names,
                    trace_device_ms=dev_ms)
-        print(f"extras: StageTimer (one {b}-frame batch, under the "
-              f"profiler): {timer.report()}; profile_to wrote "
-              f"{os.path.getsize(os.path.join(logdir, 'trace.json'))} B with "
-              f"the span {'vbs.process_frames' in names}, device time "
+        print(f"extras: one {b}-frame batch under the profiler: profile_to "
+              f"wrote {os.path.getsize(os.path.join(logdir, 'trace.json'))} "
+              f"B with the span {span in names}, device time "
               f"{dev_ms:.2f} ms [{card}]", flush=True)
-        if "vbs.process_frames" not in names or dev_ms <= 0:
+        if span not in names or dev_ms <= 0:
             raise AssertionError("extras: the trace lacks the annotation or "
                                  "device time")
         return rec

@@ -1094,18 +1094,25 @@ def test_profile_to_on_the_card(cuda, tmp_path):
     import json
 
     from vision_basedsensor_tpu_torch.utils import trace_annotation
-    from vision_basedsensor_tpu_torch.utils.profiling import (StageTimer,
-                                                              profile_to)
+    from vision_basedsensor_tpu_torch.utils.profiling import profile_to
     x = torch.randn(256, 256, device=cuda)
-    timer = StageTimer()
     with profile_to(str(tmp_path)) as prof:
-        with trace_annotation("vbs.matmul"):
-            with timer.stage("matmul", block_on=x @ x):
-                pass
-    assert timer.counts["matmul"] == 1
-    names = {e.get("name") for e in json.loads(
-        (tmp_path / "trace.json").read_text())["traceEvents"]}
-    assert "vbs.matmul" in names
+        with trace_annotation("vbs.detect.filters"):
+            x @ x
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "vbs.detect.filters"
+            and e.get("cat") == "user_annotation"]
+    assert len(span) == 1
+    # The span and the device activity it launched share one clock: the
+    # matmul's launch call lies inside the span.
+    a, b = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if str(e.get("cat")).startswith("cuda_")   # cudaLaunch*, cuLaunch*
+                and a <= e["ts"] <= b and "correlation" in e.get("args", {})}
+    assert any(e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launched
+               for e in events)
     assert sum(e.device_time_total for e in prof.key_averages()) > 0
 
 

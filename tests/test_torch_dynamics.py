@@ -1,8 +1,8 @@
 """The port's library extras against the JAX package on the CPU:
 analysis/dynamics.py (moving_average, contact_signal), core/fit.py
 ellipse_from_moments, core/imaging.py box_sum, ops/ncc.py
-normxcorr_gaussian(binary_input=False), and utils/profiling.py (StageTimer,
-trace_annotation, profile_to).
+normxcorr_gaussian(binary_input=False), and utils/profiling.py
+(trace_annotation, profile_to).
 
 Inputs are seeded numpy arrays, the same for both packages. Float32
 results agree to a few ulps of their magnitude (the sums and filter matmuls
@@ -32,7 +32,7 @@ from vision_basedsensor_tpu_torch.core.imaging import box_sum
 from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
 from vision_basedsensor_tpu_torch.reconstruct.displacement import \
     displacement_scan
-from vision_basedsensor_tpu_torch.utils import StageTimer, trace_annotation
+from vision_basedsensor_tpu_torch.utils import trace_annotation
 from vision_basedsensor_tpu_torch.utils.profiling import profile_to
 
 
@@ -159,20 +159,12 @@ def test_normxcorr_continuous_input_matches_jax(dtype):
                                atol=1e-4 if dtype == "float32" else 2 ** -7)
 
 
-def test_stage_timer_and_trace_annotation(tmp_path):
-    timer = StageTimer()
+def test_trace_annotation_and_profile_to(tmp_path):
     x = torch.ones(64, 64)
-    for _ in range(3):
-        with timer.stage("matmul", block_on=(x @ x, {"y": [x]})):
-            pass
-    with timer.stage("idle"):
-        pass
-    assert timer.counts == {"matmul": 3, "idle": 1}
-    assert all(t >= 0.0 for t in timer.totals.values())
-    report = timer.report()
-    assert "matmul" in report and "3x" in report
+    # No profiler running: one shared null context, whatever the name.
+    assert trace_annotation("vbs.detect") is trace_annotation("vbs.contact")
     with pytest.raises(ValueError, match="inside"):
-        with trace_annotation("vbs.raising"):
+        with trace_annotation("vbs.detect"):
             raise ValueError("raised inside the span")   # not swallowed
     with profile_to(str(tmp_path), device="cpu"):
         with trace_annotation("vbs.detect"):

@@ -20,6 +20,7 @@ from vision_basedsensor_tpu_torch.config import AnalysisConfig
 from vision_basedsensor_tpu_torch.core.fit import (PlaneFit, fit_plane,
                                                    fit_plane_robust, masked_mean)
 from vision_basedsensor_tpu_torch.reconstruct.displacement import Reconstruction
+from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 
 class DeviationAnalysis(NamedTuple):
@@ -53,17 +54,20 @@ def _start_points(like: torch.Tensor, initial_mode: str) -> torch.Tensor:
 def contact_state_sequence(recon: Reconstruction, cfg: AnalysisConfig,
                            initial_mode: str = "plane") -> ContactState:
     """Contact-plane fit over each frame's cumulative displacement field."""
-    start = _start_points(recon.world, initial_mode)              # (65, 3)
-    disp = cfg.deviation_scale * recon.from_first                 # (B, 65, 3)
-    end = start[None] + disp
-    valid = recon.seen
-    plane = (fit_plane_robust(end, valid) if cfg.robust_plane_fit
-             else fit_plane(end, valid))
-    mean_vec = masked_mean(disp, valid[..., None], axis=-2)
-    mean_mag = masked_mean(recon.from_first_norm, valid, axis=-1)
-    return ContactState(tilt_deg=plane.tilt_deg, plane=plane,
-                        mean_vector=mean_vec, mean_magnitude=mean_mag,
-                        valid=valid.sum(-1) >= 3)
+    with trace_annotation("vbs.contact"):
+        with trace_annotation("vbs.contact.layout"):
+            start = _start_points(recon.world, initial_mode)      # (65, 3)
+        with trace_annotation("vbs.contact.fit"):
+            disp = cfg.deviation_scale * recon.from_first         # (B, 65, 3)
+            end = start[None] + disp
+            valid = recon.seen
+            plane = (fit_plane_robust(end, valid) if cfg.robust_plane_fit
+                     else fit_plane(end, valid))
+            mean_vec = masked_mean(disp, valid[..., None], axis=-2)
+            mean_mag = masked_mean(recon.from_first_norm, valid, axis=-1)
+            return ContactState(tilt_deg=plane.tilt_deg, plane=plane,
+                                mean_vector=mean_vec, mean_magnitude=mean_mag,
+                                valid=valid.sum(-1) >= 3)
 
 
 def start_end_displacement(recon: Reconstruction,

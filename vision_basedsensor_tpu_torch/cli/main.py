@@ -18,10 +18,13 @@ the pose-compensation loop:
   serve        MJPEG acquisition server (--synthetic: rendered dome frames)
 
 The arguments are the reference's, spelled the same, so a user's scripts run
-unchanged. One option is new: ``--device {cuda,cpu}`` (before the
-subcommand, default ``cuda``), passed to every constructor; without a card
-and without ``--device cpu`` every command raises (``core/device.py``). The
-reference's ``bench`` is not registered here, so argparse refuses it.
+unchanged. Two options are new, both before the subcommand: ``--device
+{cuda,cpu}`` (default ``cuda``), passed to every constructor; without a card
+and without ``--device cpu`` every command raises (``core/device.py``).
+``--profile-dir DIR`` runs the subcommand under ``torch.profiler`` and
+writes its Chrome trace, with the program's spans
+(``utils/profiling.py:SPANS``), to ``DIR/trace.json``. The reference's
+``bench`` is not registered here, so argparse refuses it.
 ``--plots-dir`` and ``--plot`` need matplotlib.
 
 ``track --tpu-decode`` reads the video with ``MjpegAviCudaSource`` and
@@ -76,6 +79,7 @@ def _stream_video(path, args, cfg, apply_warmup: bool, chunk: int):
     pipeline)`` with numpy leaves spanning all frames.
     """
     from vision_basedsensor_tpu_torch.pipeline import StreamingPipeline
+    from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
     if getattr(args, "tpu_decode", False):
         from vision_basedsensor_tpu_torch.io.video import (MjpegAviCudaSource,
                                                            device_feed)
@@ -95,8 +99,9 @@ def _stream_video(path, args, cfg, apply_warmup: bool, chunk: int):
                                    apply_warmup=apply_warmup,
                                    device=args.device)
         out = sp.process(batch)
-        tr.append(_host(out.tracked))
-        rc.append(_host(out.recon))
+        with trace_annotation("vbs.stream.readback"):
+            tr.append(_host(out.tracked))
+            rc.append(_host(out.recon))
     if sp is None:
         raise SystemExit(f"no frames in {path}")
     cat = lambda f, cs: np.concatenate([getattr(c, f) for c in cs])
@@ -760,6 +765,10 @@ def main(argv=None):
     p.add_argument("--config", help="PipelineConfig JSON file")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where every tensor is built (default: the card)")
+    p.add_argument("--profile-dir", metavar="DIR",
+                   help="run the command under torch.profiler and write its "
+                        "Chrome trace, with the program's spans (vbs.*), "
+                        "to DIR/trace.json")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     d = sub.add_parser("detect", help="detect markers in a single image")
@@ -927,7 +936,11 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     args.device = resolve(args.device)
-    return args.fn(args)
+    if args.profile_dir is None:
+        return args.fn(args)
+    from vision_basedsensor_tpu_torch.utils.profiling import profile_to
+    with profile_to(args.profile_dir, args.device):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

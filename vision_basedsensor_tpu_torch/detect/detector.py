@@ -39,6 +39,7 @@ from vision_basedsensor_tpu_torch.ops.moments import (
 from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
 from vision_basedsensor_tpu_torch.ops.peaks import (find_peaks,
                                                     select_peaks_from_cells)
+from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 # The reference's row-tiled field kernel halo (ops/pallas/fields.py:164).
 # The port's fields kernel has no halo limit and its window kernels no
@@ -136,56 +137,78 @@ def detect_markers_and_scale(frames: torch.Tensor, cfg: DetectConfig,
     """Like :func:`detect_markers` but also returns the photometric axis
     calibration scalar used (measured from this batch when ``axis_scale``
     is None)."""
-    gray = to_grayscale(frames, cfg.channel_order)
-    if profile is None:
-        profile = (cfg.low_res if gray.shape[-2] <= cfg.low_res_max_rows
-                   else cfg.high_res)
-    squeeze = gray.ndim == 2
-    if squeeze:
-        gray = gray[None]
+    with trace_annotation("vbs.detect"):
+        return _detect(frames, cfg, profile, axis_scale)
 
-    # fast_filters: the filter GEMMs in bfloat16 with float32 accumulation
-    # (detector.py:157-161 of the reference).
-    fdt = torch.bfloat16 if cfg.fast_filters else None
-    area = dog_area_mask(gray, profile, cfg.dog_offset, fdt).float()
-    ncc = normxcorr_gaussian(area, profile.template_size,
-                             profile.template_sigma, binary_input=True,
-                             compute_dtype=fdt)
-    gray = gray.contiguous()
+
+def _detect(frames: torch.Tensor, cfg: DetectConfig,
+            profile: DetectProfile | None,
+            axis_scale: torch.Tensor | None
+            ) -> tuple[Detections, torch.Tensor]:
+    with trace_annotation("vbs.detect.filters"):
+        gray = to_grayscale(frames, cfg.channel_order)
+        if profile is None:
+            profile = (cfg.low_res if gray.shape[-2] <= cfg.low_res_max_rows
+                       else cfg.high_res)
+        squeeze = gray.ndim == 2
+        if squeeze:
+            gray = gray[None]
+
+        # fast_filters: the filter GEMMs in bfloat16 with float32
+        # accumulation (detector.py:157-161 of the reference).
+        fdt = torch.bfloat16 if cfg.fast_filters else None
+        area = dog_area_mask(gray, profile, cfg.dog_offset, fdt).float()
+        ncc = normxcorr_gaussian(area, profile.template_size,
+                                 profile.template_sigma, binary_input=True,
+                                 compute_dtype=fdt)
+        gray = gray.contiguous()
     h, w = gray.shape[-2:]
     if takes_fused_branch(cfg, h, w, profile):
-        packed, cval, cidx = fused_fields(ncc, area, gray, cfg.ncc_threshold,
-                                          cfg.open_ksize, profile)
-        peaks = select_peaks_from_cells(cval, cidx, w, cfg.max_candidates,
-                                        float(profile.peak_window))
-        geom = cut_geometry(peaks)
+        with trace_annotation("vbs.detect.fields"):
+            packed, cval, cidx = fused_fields(ncc, area, gray,
+                                              cfg.ncc_threshold,
+                                              cfg.open_ksize, profile)
+        with trace_annotation("vbs.detect.peaks"):
+            peaks = select_peaks_from_cells(cval, cidx, w, cfg.max_candidates,
+                                            float(profile.peak_window))
+            geom = cut_geometry(peaks)
         # Paired windows (two peaks per 128-lane row) need an even K and a
         # patch that fits the 64-lane slot (detector.py:207).
         if cfg.max_candidates % 2 == 0 and profile.patch_size <= 64:
-            patches, pstart = gather_windows_paired(packed, peaks, geom,
-                                                    profile)
+            with trace_annotation("vbs.detect.gather"):
+                patches, pstart = gather_windows_paired(packed, peaks, geom,
+                                                        profile)
             paired_fn = (moments_from_patches_paired_mxu
                          if cfg.moment_mxu_basis
                          else moments_from_patches_paired)
-            sums = paired_fn(patches, pstart, peaks, geom, profile, w)
+            with trace_annotation("vbs.detect.moments"):
+                sums = paired_fn(patches, pstart, peaks, geom, profile, w)
         else:
-            patches, pstart = gather_windows(packed, peaks, geom, profile)
-            sums = moments_from_patches(patches, pstart, peaks, geom, profile,
-                                        w)
+            with trace_annotation("vbs.detect.gather"):
+                patches, pstart = gather_windows(packed, peaks, geom, profile)
+            with trace_annotation("vbs.detect.moments"):
+                sums = moments_from_patches(patches, pstart, peaks, geom,
+                                            profile, w)
     else:
         # detector.py:222-239. Both backends sum with the window-sums kernel
         # on the card (the reference's "pallas" would run K5 here, its
         # "xla" the same function unfused).
-        band, area_open = band_and_opening(ncc, area, cfg.ncc_threshold,
-                                           profile.band_window, cfg.open_ksize)
-        peaks = find_peaks(ncc, cfg.ncc_threshold, profile.peak_window,
-                           cfg.max_candidates, float(profile.peak_window))
-        geom = cut_geometry(peaks)
-        sums = window_sums(band, area_open, gray, peaks, geom, profile)
+        with trace_annotation("vbs.detect.band_opening"):
+            band, area_open = band_and_opening(ncc, area, cfg.ncc_threshold,
+                                               profile.band_window,
+                                               cfg.open_ksize)
+        with trace_annotation("vbs.detect.peaks"):
+            peaks = find_peaks(ncc, cfg.ncc_threshold, profile.peak_window,
+                               cfg.max_candidates, float(profile.peak_window))
+            geom = cut_geometry(peaks)
+        with trace_annotation("vbs.detect.window_sums"):
+            sums = window_sums(band, area_open, gray, peaks, geom, profile)
 
-    det, scale = _finalize_candidates(sums, peaks, cfg, axis_scale=axis_scale)
-    if squeeze:
-        det = Detections(*(x[0] for x in det))
+    with trace_annotation("vbs.detect.finalize"):
+        det, scale = _finalize_candidates(sums, peaks, cfg,
+                                          axis_scale=axis_scale)
+        if squeeze:
+            det = Detections(*(x[0] for x in det))
     return det, scale
 
 

@@ -21,6 +21,7 @@ import numpy as np
 from vision_basedsensor_tpu_torch import layout
 from vision_basedsensor_tpu_torch.io import xlsx
 from vision_basedsensor_tpu_torch.io.schemas import COORDS_3D_COLUMNS, TRACKING_COLUMNS
+from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 
 def _read_text(path: str) -> str:
@@ -50,6 +51,11 @@ def _id_from_row_col(row: np.ndarray, col: np.ndarray) -> np.ndarray:
 
 def write_tracking_csv(path: str, tracked) -> None:
     """Write a TrackedFrames batch to the canonical tracking CSV."""
+    with trace_annotation("vbs.io.table"):
+        _write_tracking_csv(path, tracked)
+
+
+def _write_tracking_csv(path: str, tracked) -> None:
     import numpy as _np
     xy = _np.asarray(tracked.xy)
     axes = _np.asarray(tracked.axes)

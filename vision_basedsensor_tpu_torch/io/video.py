@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
+from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 
 @functools.cache
@@ -238,12 +239,13 @@ class MjpegAviCudaSource(VideoSource):
             raise ValueError(
                 "zmax band limit requires transport='split'|'tdelta'")
         device = resolve(device)
-        with open(path, "rb") as f:
-            self._buf = f.read()
-        first = next(_iter_avi_video_chunks(self._buf), None)
-        if first is None or not first.startswith(b"\xff\xd8"):
-            raise ValueError(f"{path}: not an MJPEG AVI")
-        self._dec = MjpegBatchDecoder(device=device)
+        with trace_annotation("vbs.feed.open"):
+            with open(path, "rb") as f:
+                self._buf = f.read()
+            first = next(_iter_avi_video_chunks(self._buf), None)
+            if first is None or not first.startswith(b"\xff\xd8"):
+                raise ValueError(f"{path}: not an MJPEG AVI")
+            self._dec = MjpegBatchDecoder(device=device)
         self._transport = transport
         self._zmax = zmax
         self._fps = fps
@@ -430,7 +432,8 @@ def device_feed(source: VideoSource, batch_size: int,
     t.start()
     pending = None
     while True:
-        t.join()
+        with trace_annotation("vbs.feed.wait"):
+            t.join()
         with lock:
             batch = state.get("next")
             err = state.get("err")
@@ -444,8 +447,9 @@ def device_feed(source: VideoSource, batch_size: int,
             return
         t = threading.Thread(target=prefetch)
         t.start()
-        arr = (to_dev(batch) if to_dev is not None
-               else _host_to_device(batch, device))
+        with trace_annotation("vbs.feed.device_decode"):
+            arr = (to_dev(batch) if to_dev is not None
+                   else _host_to_device(batch, device))
         if pending is not None:
             yield pending
         pending = arr

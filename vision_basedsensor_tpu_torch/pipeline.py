@@ -38,6 +38,7 @@ from vision_basedsensor_tpu_torch.track.associate import (TrackedFrames,
                                                           associate_sequential)
 from vision_basedsensor_tpu_torch.track.rings import (ReferenceMarkers,
                                                       assign_identities)
+from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 
 class PipelineOutputs(NamedTuple):
@@ -68,23 +69,25 @@ def _preprocess(frames: torch.Tensor, cfg: PipelineConfig, crop: bool,
                 rectify_map: torch.Tensor | None) -> torch.Tensor:
     """Crop, then (with a rectify map) grayscale and remap: the reference's
     order (``marker_detection.py:78-91``)."""
-    if crop:
-        frames = crop_frames(frames, crop_ratios=cfg.crop_ratios)
-    if rectify_map is not None:
-        frames = remap_bilinear(to_grayscale(frames, cfg.detect.channel_order),
-                                rectify_map)
-    return frames
+    with trace_annotation("vbs.pipeline.preprocess"):
+        if crop:
+            frames = crop_frames(frames, crop_ratios=cfg.crop_ratios)
+        if rectify_map is not None:
+            frames = remap_bilinear(
+                to_grayscale(frames, cfg.detect.channel_order), rectify_map)
+        return frames
 
 
 def _associate(ref: ReferenceMarkers, det: Detections, cfg: PipelineConfig,
                carry_xy: torch.Tensor | None = None):
     """Association by ``cfg.track.association_mode``; returns the tracked
     frames and the last-seen positions (unchanged in frame-0 mode)."""
-    gate = cfg.track.min_marker_distance_px
-    if cfg.track.association_mode == "sequential":
-        return associate_sequential(ref, det, gate, carry_xy=carry_xy,
-                                    return_carry=True)
-    return associate(ref, det, gate), carry_xy
+    with trace_annotation("vbs.track.associate"):
+        gate = cfg.track.min_marker_distance_px
+        if cfg.track.association_mode == "sequential":
+            return associate_sequential(ref, det, gate, carry_xy=carry_xy,
+                                        return_carry=True)
+        return associate(ref, det, gate), carry_xy
 
 
 def initialize(first_frame: torch.Tensor, cfg: PipelineConfig,
@@ -109,14 +112,15 @@ def process_frames(frames: torch.Tensor, ref: ReferenceMarkers,
     """Steady-state pipeline over a frame batch ``(B, H, W[, 3])``; the
     camera tensors must lie on the frames' device. With ``rectify_map``,
     ``cam`` is the rectified camera of :func:`prepare_undistortion`."""
-    frames = _preprocess(frames, cfg, crop, rectify_map)
-    det = detect_markers(frames, cfg.detect, axis_scale=ref.axis_scale)
-    tracked, _ = _associate(ref, det, cfg)
-    recon = reconstruct_sequence(cam, tracked, cfg.reconstruct,
-                                 apply_warmup=apply_warmup)
-    contact = contact_state_sequence(recon, cfg.analysis)
-    return PipelineOutputs(detections=det, tracked=tracked, recon=recon,
-                           contact=contact)
+    with trace_annotation("vbs.pipeline.process_frames"):
+        frames = _preprocess(frames, cfg, crop, rectify_map)
+        det = detect_markers(frames, cfg.detect, axis_scale=ref.axis_scale)
+        tracked, _ = _associate(ref, det, cfg)
+        recon = reconstruct_sequence(cam, tracked, cfg.reconstruct,
+                                     apply_warmup=apply_warmup)
+        contact = contact_state_sequence(recon, cfg.analysis)
+        return PipelineOutputs(detections=det, tracked=tracked, recon=recon,
+                               contact=contact)
 
 
 def run_video(frames: torch.Tensor, cam: CameraModel, cfg: PipelineConfig,
@@ -178,6 +182,10 @@ class StreamingPipeline:
     def process(self, frames) -> PipelineOutputs:
         """Process one chunk ``(B, H, W[, 3])`` (a tensor or numpy array,
         moved to the pipeline's device); the state advances."""
+        with trace_annotation("vbs.pipeline.chunk"):
+            return self._process(frames)
+
+    def _process(self, frames) -> PipelineOutputs:
         frames = (frames.to(self.device) if isinstance(frames, torch.Tensor)
                   else torch.tensor(np.asarray(frames), device=self.device))
         hw = tuple(int(d) for d in frames.shape[1:3])

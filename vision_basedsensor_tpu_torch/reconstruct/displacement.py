@@ -19,6 +19,7 @@ from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
 from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
 from vision_basedsensor_tpu_torch.reconstruct.depth import reconstruct_positions
 from vision_basedsensor_tpu_torch.track.associate import TrackedFrames
+from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 
 class Reconstruction(NamedTuple):
@@ -99,14 +100,15 @@ def displacement_scan(world: torch.Tensor, seen: torch.Tensor,
     returned beside the result (the given carry is never changed in
     place). CPU tensors take :func:`displacement_scan_reference`; CUDA
     tensors one launch of the scan kernel (``ops/cuda/scan.py``)."""
-    if world.device.type == "cpu":
-        return displacement_scan_reference(world, seen, cfg, carry,
-                                           return_carry)
-    world, seen = world.contiguous(), seen.contiguous()
-    fields, final = kscan.displacement_scan(
-        world, seen, cfg.max_step_displacement_mm, carry)
-    recon = Reconstruction(world, seen, *fields)
-    return (recon, final) if return_carry else recon
+    with trace_annotation("vbs.reconstruct.scan"):
+        if world.device.type == "cpu":
+            return displacement_scan_reference(world, seen, cfg, carry,
+                                               return_carry)
+        world, seen = world.contiguous(), seen.contiguous()
+        fields, final = kscan.displacement_scan(
+            world, seen, cfg.max_step_displacement_mm, carry)
+        recon = Reconstruction(world, seen, *fields)
+        return (recon, final) if return_carry else recon
 
 
 def warmup_mask(world: torch.Tensor, ok: torch.Tensor, warmup_frames: int,

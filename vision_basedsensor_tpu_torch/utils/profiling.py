@@ -1,77 +1,66 @@
-"""Per-stage timing and profiler hooks.
+"""Program spans and the profiler hook.
 
-Port of ``vision_basedsensor_tpu/utils/profiling.py``: a ``StageTimer`` that
-accounts wall time per stage (waiting for the stage's device results so the
-numbers mean something), ``trace_annotation`` (a named span in a
-``torch.profiler`` trace, the counterpart of
+Port of ``vision_basedsensor_tpu/utils/profiling.py``: ``trace_annotation``
+(a named span in a ``torch.profiler`` trace, the counterpart of
 ``jax.profiler.TraceAnnotation``) and ``profile_to``, which writes a Chrome
 trace of the block it wraps (the counterpart of an XProf capture).
+
+A span's start and end are the profiler's own, on the clock of the device
+activities it records, so a trace puts each idle stretch of the card down
+to the innermost span the host was in. A span never touches a tensor and
+never waits for the device. With no profiler running it is one shared null
+context. Every span name is in ``SPANS``; the layer each belongs to is in
+``PERF.md`` §3.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from vision_basedsensor_tpu_torch.core.device import CUDA, resolve
 
+SPANS = (
+    # pipeline
+    "vbs.pipeline.process_frames",      # pipeline.py:process_frames
+    "vbs.pipeline.chunk",               # StreamingPipeline.process
+    "vbs.pipeline.preprocess",          # pipeline.py:_preprocess
+    # detect (detect/detector.py:detect_markers_and_scale)
+    "vbs.detect",
+    "vbs.detect.filters",               # grayscale, DoG area mask, NCC
+    "vbs.detect.fields",                # fused fields kernel (K1/K2)
+    "vbs.detect.band_opening",          # unfused branch: band and opening
+    "vbs.detect.peaks",                 # peak selection and cut geometry
+    "vbs.detect.gather",                # window gather kernel (K3/K4)
+    "vbs.detect.moments",               # moment sums of the gathered windows
+    "vbs.detect.window_sums",           # unfused branch: window sums (K5)
+    "vbs.detect.finalize",              # candidate geometry and gates
+    # track, reconstruct, contact state
+    "vbs.track.associate",              # pipeline.py:_associate
+    "vbs.reconstruct.positions",        # reconstruct/depth.py
+    "vbs.reconstruct.scan",             # reconstruct/displacement.py
+    "vbs.contact",                      # analysis/force.py
+    "vbs.contact.layout",               # the dome layout's start points
+    "vbs.contact.fit",                  # plane fit and means
+    # ingest (io/video.py) and the replay command (cli/main.py)
+    "vbs.feed.open",                    # MjpegAviCudaSource set-up
+    "vbs.feed.wait",                    # device_feed waits for the prefetch
+    "vbs.feed.device_decode",           # device_feed's copy and device decode
+    "vbs.stream.readback",              # a chunk's outputs to the host
+    "vbs.io.table",                     # io/table.py:write_tracking_csv
+)
 
-def _cuda_devices(x, found: set) -> set:
-    """The CUDA devices of every tensor in ``x`` (tensors, tuples, lists,
-    dicts, nested)."""
-    if isinstance(x, torch.Tensor):
-        if x.device.type == "cuda":
-            found.add(x.device)
-    elif isinstance(x, dict):
-        for v in x.values():
-            _cuda_devices(v, found)
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            _cuda_devices(v, found)
-    return found
-
-
-class StageTimer:
-    """Accumulates wall time per named stage; waits for CUDA outputs."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on=None):
-        """Time the block; with ``block_on`` (tensors, possibly nested in
-        tuples, lists or dicts) synchronize each distinct CUDA device they
-        live on before the clock stops."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                for dev in _cuda_devices(block_on, set()):
-                    torch.cuda.synchronize(dev)
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:28s} {total * 1e3:9.1f} ms total"
-                         f"  ({n}x, {total / n * 1e3:8.2f} ms avg)")
-        return "\n".join(lines)
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
 def trace_annotation(name: str):
-    """A named span in an active ``torch.profiler`` trace (free when none
-    is recording)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named span (one of ``SPANS``) in the running ``torch.profiler``
+    trace; with no profiler running, a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
