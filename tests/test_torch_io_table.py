@@ -23,7 +23,7 @@ from vision_basedsensor_tpu.reconstruct.displacement import \
 from vision_basedsensor_tpu.track.associate import TrackedFrames as JTracked
 from vision_basedsensor_tpu.track.rings import ReferenceMarkers as JRef
 
-from vision_basedsensor_tpu_torch import convert
+from vision_basedsensor_tpu_torch import convert, native
 from vision_basedsensor_tpu_torch.calibrate import \
     CalibrationArtifact as TArtifact
 from vision_basedsensor_tpu_torch.io import session as tsession
@@ -41,17 +41,56 @@ def fixed_zip_clock(monkeypatch):
         time=lambda: stamp, localtime=time.localtime))
 
 
-def _tracked(seed=0):
+def _tracked(seed=0, t=T):
     """Seeded tracking outputs (float32, with occlusions) as JAX
     ``TrackedFrames`` of numpy arrays; the writers of both packages read
     them with ``np.asarray``."""
     rng = np.random.default_rng(seed)
     f = lambda *s: (rng.random(s) * 400).astype(np.float32)
-    return JTracked(xy=f(T, 65, 2), ref_xy=f(65, 2), axes=f(T, 65, 2),
-                    angle=(rng.random((T, 65)) * 180).astype(np.float32),
+    return JTracked(xy=f(t, 65, 2), ref_xy=f(65, 2), axes=f(t, 65, 2),
+                    angle=(rng.random((t, 65)) * 180).astype(np.float32),
                     ring=np.repeat(np.arange(6), (1, 6, 12, 18, 24, 4))
                     .astype(np.int32),
-                    valid=rng.random((T, 65)) > 0.15)
+                    valid=rng.random((t, 65)) > 0.15)
+
+
+def _with_values(tr, values, dtype=np.float32):
+    """``tr`` with its float fields drawn from ``values`` (seeded), so that
+    every column of the table meets them."""
+    rng = np.random.default_rng(6)
+    pick = lambda shape: rng.choice(np.asarray(values, dtype), shape)
+    return tr._replace(xy=pick(tr.xy.shape), ref_xy=pick(tr.ref_xy.shape),
+                       axes=pick(tr.axes.shape), angle=pick(tr.angle.shape))
+
+
+TRACKING_CASES = {
+    "seeded": lambda: _tracked(),
+    "seeded_2048x65": lambda: _tracked(8, 2048),
+    # Exact ties at the fourth decimal round half to even.
+    "ties_k_over_32": lambda: _with_values(
+        _tracked(9), [k / 32 for k in range(-64, 65)]),
+    "negative_zero": lambda: _with_values(
+        _tracked(10), [-0.0, -1e-5, -4.9999e-5, -5e-5, -5.0001e-5, 1e-5,
+                       -0.00015, -0.00025, -3e-9]),
+    "denormals": lambda: _with_values(
+        _tracked(11), [1e-45, -1e-45, 1e-40, -3e-39, 1.1754942e-38, 0.0, 2.5]),
+    "nonfinite": lambda: _with_values(
+        _tracked(12), [np.nan, -np.nan, np.inf, -np.inf, 1.5, -2.25]),
+    "float32_above_1e7": lambda: _with_values(
+        _tracked(13), [1.0000001e7, -3.3554432e7, 16777217.0, 2.5e9,
+                       9.007199e15, 1e20, -1e30, 3.4028235e38]),
+    "float64": lambda: _with_values(
+        _tracked(14), [1e300, -1e300, 1.7976931348623157e308, 2.0 ** 53,
+                       2.0 ** 53 - 1, -(2.0 ** 53 + 2), 0.1, 2.675, 1.00005,
+                       -123456.78905, 5e-324, 2.2250738585072014e-308],
+        np.float64),
+    "all_invalid": lambda: _tracked(15)._replace(
+        valid=np.zeros((T, 65), bool)),
+    # Rings in reverse order give negative columns; ring -1 a negative row.
+    "negative_int_column": lambda: _tracked(16)._replace(
+        ring=np.r_[np.repeat(np.arange(6), (1, 6, 12, 18, 24, 3))[::-1], -1]
+        .astype(np.int32)),
+}
 
 
 def _recon(seed=1):
@@ -103,6 +142,37 @@ def test_tracking_csv_bytes_and_readers(tmp_path):
     got = ttable.read_tracking_csv(str(jp))
     _assert_same(got, jtable.read_tracking_csv(str(tp)))
     np.testing.assert_array_equal(got["valid"], tr.valid)
+
+
+@pytest.mark.parametrize("case", list(TRACKING_CASES))
+def test_tracking_csv_bytes_match_jax(tmp_path, case):
+    """The port's native formatter writes the JAX package's row-by-row
+    bytes: seeded tables, half-even ties, negative zeros, denormals, nan
+    and infinities, huge float32 and float64 values, no valid marker, and
+    negative integer columns."""
+    tr = TRACKING_CASES[case]()
+    jp, tp = tmp_path / "j.csv", tmp_path / "t.csv"
+    jtable.write_tracking_csv(str(jp), tr)
+    ttable.write_tracking_csv(str(tp), tr)
+    assert _bytes(jp) == _bytes(tp)
+    assert len(_bytes(tp).splitlines()) == 1 + int(tr.valid.sum())
+
+
+@pytest.mark.parametrize("case", ["seeded", "nonfinite", "float64",
+                                  "all_invalid"])
+def test_table_format_counts(tmp_path, case):
+    """``rows`` counts the rows written; ``wide_values`` the values that
+    are not finite or lie at or above 2**53 in magnitude."""
+    tr = TRACKING_CASES[case]()
+    t, m = np.nonzero(tr.valid)
+    vals = np.concatenate([tr.ref_xy[m], tr.xy[t, m], tr.axes[t, m],
+                           tr.angle[t, m, None]], axis=1).astype(np.float64)
+    before = native.table_format_counts()
+    ttable.write_tracking_csv(str(tmp_path / "t.csv"), tr)
+    after = native.table_format_counts()
+    assert after["rows"] - before["rows"] == len(t)
+    assert (after["wide_values"] - before["wide_values"]
+            == int(np.count_nonzero(~(np.abs(vals) < 2.0 ** 53))))
 
 
 def test_tracking_csv_takes_cpu_tensors(tmp_path):

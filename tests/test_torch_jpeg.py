@@ -223,6 +223,19 @@ def test_native_library_builds_once_per_source():
     assert path.parent == ROOT / "build" / "vbs_torch_native"
 
 
+def test_table_library_builds_once_per_source():
+    """The table formatter is a library of its own: loading it leaves the
+    decoder's path and library as they were."""
+    jpeg_path, jpeg_lib = native.library_path(), native.load_jpeg_lib()
+    path = native.table_library_path()
+    lib = native.load_table_lib()
+    assert path.exists() and native.load_table_lib() is lib
+    assert path.parent == ROOT / "build" / "vbs_torch_native"
+    assert path != jpeg_path and lib is not jpeg_lib
+    assert native.library_path() == jpeg_path
+    assert native.load_jpeg_lib() is jpeg_lib
+
+
 def test_last_stats_records_each_batch():
     """``last_stats`` is the byte accounting of the most recent batch."""
     jpegs = _stream("gray q70")

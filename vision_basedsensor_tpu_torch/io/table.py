@@ -1,9 +1,12 @@
 """Tabular artifact I/O: tracking CSV, 3D-coordinate tables, experiment TXT.
 
-A copy of ``vision_basedsensor_tpu/io/table.py`` on the port's ``layout``
-and ``io/xlsx``; both packages write the same bytes. The writers read their
-inputs with ``np.asarray``, so they take numpy arrays (or CPU tensors):
-move a card's outputs to the host first, one ``.cpu()`` per field.
+The port of ``vision_basedsensor_tpu/io/table.py`` on the port's ``layout``
+and ``io/xlsx``; both packages write the same bytes. The tracking writer
+gathers the valid marker-frames with numpy and formats the whole table in
+one call to the native formatter (``native/table_format.cpp``); the other
+functions are copies of the JAX package's. The writers read their inputs
+with ``np.asarray``, so they take numpy arrays (or CPU tensors): move a
+card's outputs to the host first, one ``.cpu()`` per field.
 
 Stdlib CSV + the local xlsx shim; reads both this framework's canonical
 schemas and the reference's variants (encoding sniff + multi-delimiter like
@@ -18,7 +21,7 @@ import re
 
 import numpy as np
 
-from vision_basedsensor_tpu_torch import layout
+from vision_basedsensor_tpu_torch import layout, native
 from vision_basedsensor_tpu_torch.io import xlsx
 from vision_basedsensor_tpu_torch.io.schemas import COORDS_3D_COLUMNS, TRACKING_COLUMNS
 from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
@@ -56,30 +59,28 @@ def write_tracking_csv(path: str, tracked) -> None:
 
 
 def _write_tracking_csv(path: str, tracked) -> None:
-    import numpy as _np
-    xy = _np.asarray(tracked.xy)
-    axes = _np.asarray(tracked.axes)
-    angle = _np.asarray(tracked.angle)
-    valid = _np.asarray(tracked.valid)
-    ref_xy = _np.asarray(tracked.ref_xy)
-    rings = _np.asarray(tracked.ring)
+    xy = np.asarray(tracked.xy)
+    axes = np.asarray(tracked.axes)
+    angle = np.asarray(tracked.angle)
+    valid = np.asarray(tracked.valid)
+    ref_xy = np.asarray(tracked.ref_xy)
+    rings = np.asarray(tracked.ring)
     bases = layout._ring_base_ids()
 
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(TRACKING_COLUMNS)
-        for t in range(xy.shape[0]):
-            for m in range(xy.shape[1]):
-                if not valid[t, m]:
-                    continue
-                mid = m + 1
-                ring = int(rings[m])
-                col = mid - int(bases[ring])
-                w.writerow([t, mid, ring, col,
-                            f"{ref_xy[m, 0]:.4f}", f"{ref_xy[m, 1]:.4f}",
-                            f"{xy[t, m, 0]:.4f}", f"{xy[t, m, 1]:.4f}",
-                            f"{axes[t, m, 0]:.4f}", f"{axes[t, m, 1]:.4f}",
-                            f"{angle[t, m]:.4f}"])
+    # Rows frame-major, then marker, as the reference's row loop visits them.
+    t, m = np.nonzero(valid)
+    ring = rings[m].astype(np.int64)
+    ints = np.stack([t, m + 1, ring, m + 1 - bases[ring]], axis=1,
+                    dtype=np.int64)
+    vals = np.concatenate([ref_xy[m], xy[t, m], axes[t, m], angle[t, m, None]],
+                          axis=1, dtype=np.float64)    # widening is exact
+    body = native.format_table_rows(ints, vals)
+
+    head = _stdio.StringIO()
+    csv.writer(head).writerow(TRACKING_COLUMNS)
+    with open(path, "wb") as f:
+        f.write(head.getvalue().encode())
+        f.write(body)
 
 
 def read_tracking_csv(path: str) -> dict[str, np.ndarray]:
