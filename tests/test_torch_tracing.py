@@ -47,7 +47,8 @@ def run():
         pipeline.process_frames(frames, ref, scene.cam, unfused)
         pipeline.StreamingPipeline(scene.cam, cfg, ref=ref,
                                    device=CPU).process(frames)
-    return dict(call=call, frames=frames)
+    return dict(call=call, frames=frames, scene=scene, ref=ref,
+                cfgs={"fused": cfg, "unfused": unfused})
 
 
 def _spans(path):
@@ -97,6 +98,22 @@ def test_spans_are_named_and_nested(run, tmp_path):
         elif name not in top:
             assert _inside(s, spans, top), name
     assert len(SPANS) == len(set(SPANS))
+
+
+def test_the_peak_field_span_is_the_unfused_branchs(run, tmp_path):
+    # One call a branch: the fused branch's cell maxima come from the
+    # fields kernel, so only the unfused one opens vbs.detect.peak_field,
+    # inside its vbs.detect.peaks.
+    found = {}
+    for name, cfg in run["cfgs"].items():
+        with profile_to(str(tmp_path / name), device="cpu"):
+            pipeline.process_frames(run["frames"], run["ref"],
+                                    run["scene"].cam, cfg)
+        found[name] = _spans(tmp_path / name / "trace.json")
+    assert not any(s[2] == "vbs.detect.peak_field" for s in found["fused"])
+    fields = [s for s in found["unfused"] if s[2] == "vbs.detect.peak_field"]
+    assert len(fields) == 1
+    assert _inside(fields[0], found["unfused"], {"vbs.detect.peaks"})
 
 
 @pytest.mark.parametrize("profiled", [False, True])

@@ -9,8 +9,8 @@ binary NCC, then one of the reference's two branches, chosen by its rule
   window gather kernel (``ops/cuda/moments.py``, paired when K is even and
   the patch is <= 64 px) -> batched moment sums;
 * unfused (``:222-239``): band and opening by windowed min/max filters ->
-  ``find_peaks`` -> cut geometry -> the window-sums kernel
-  (``ops/cuda/window_sums.py``);
+  ``find_peaks`` (its peak field, cell maxima and ranking) -> cut geometry
+  -> the window-sums kernel (``ops/cuda/window_sums.py``);
 
 then ``finalize``, occlusion completion and the gates.
 """
@@ -37,7 +37,7 @@ from vision_basedsensor_tpu_torch.ops.moments import (
     moments_from_patches_paired_mxu,
 )
 from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
-from vision_basedsensor_tpu_torch.ops.peaks import (find_peaks,
+from vision_basedsensor_tpu_torch.ops.peaks import (cell_maxima, peak_field,
                                                     select_peaks_from_cells)
 from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
@@ -198,8 +198,13 @@ def _detect(frames: torch.Tensor, cfg: DetectConfig,
                                                profile.band_window,
                                                cfg.open_ksize)
         with trace_annotation("vbs.detect.peaks"):
-            peaks = find_peaks(ncc, cfg.ncc_threshold, profile.peak_window,
-                               cfg.max_candidates, float(profile.peak_window))
+            # find_peaks in its three steps, so that the windowed max field
+            # has a span of its own.
+            with trace_annotation("vbs.detect.peak_field"):
+                field = peak_field(ncc, cfg.ncc_threshold, profile.peak_window)
+            cmax, cflat = cell_maxima(field)
+            peaks = select_peaks_from_cells(cmax, cflat, w, cfg.max_candidates,
+                                            float(profile.peak_window))
             geom = cut_geometry(peaks)
         with trace_annotation("vbs.detect.window_sums"):
             sums = window_sums(band, area_open, gray, peaks, geom, profile)

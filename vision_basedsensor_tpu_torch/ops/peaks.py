@@ -3,8 +3,8 @@
 Port of ``vision_basedsensor_tpu/ops/peaks.py`` (``Peaks``,
 ``select_peaks_from_cells``, ``_suppress``, ``find_peaks``). On the fused
 branch the per-cell max/argmax comes from the fused field kernel
-(``ops/cuda/fields.py``); :func:`find_peaks` computes it for the unfused
-branch.
+(``ops/cuda/fields.py``); :func:`peak_field` and :func:`cell_maxima`
+compute it for the unfused branch (:func:`find_peaks` chains them).
 
 ``lax.top_k`` orders equal values by lower index and ``_suppress`` relies on
 that rank order; ``torch.topk`` promises no tie order, so the selection is a

@@ -33,6 +33,7 @@ SPANS = (
     "vbs.detect.fields",                # fused fields kernel (K1/K2)
     "vbs.detect.band_opening",          # unfused branch: band and opening
     "vbs.detect.peaks",                 # peak selection and cut geometry
+    "vbs.detect.peak_field",            # unfused branch: windowed max field
     "vbs.detect.gather",                # window gather kernel (K3/K4)
     "vbs.detect.moments",               # moment sums of the gathered windows
     "vbs.detect.window_sums",           # unfused branch: window sums (K5)
