@@ -376,7 +376,14 @@ SRC = {
              "vision_basedsensor_tpu/reconstruct/displacement.py:82"),
     "associate": ("vision_basedsensor_tpu_torch/csrc/associate.cu",
                   "vision_basedsensor_tpu/track/associate.py:111"),
+    "filters": ("vision_basedsensor_tpu_torch/csrc/filters.cu",
+                "vision_basedsensor_tpu/core/imaging.py:104"),
 }
+# The smallest batch at which cuBLAS sums the filter GEMMs unsplit, as the
+# stencil kernels do (measured on the H100): frames of up to 480 rows, and
+# taller. Below it the GEMM path's NCC differs in its last bits (up to
+# 5.9e-6 at 4 x 480x640), so the plain path runs on the frames repeated.
+UNSPLIT_BATCH = (512, 2)
 EXPAND_PROBES = "vision_basedsensor_tpu_torch/csrc/expand_probes.cu"
 WS_PROBES = "vision_basedsensor_tpu_torch/csrc/window_sums_probes.cu"
 GATHER_PROBES = "vision_basedsensor_tpu_torch/csrc/gather_probes.cu"
@@ -686,6 +693,7 @@ def main(argv=None) -> None:
                                                        reset_launch_counts)
     from vision_basedsensor_tpu_torch.ops.cuda import expand as kx
     from vision_basedsensor_tpu_torch.ops.cuda import fields as kf
+    from vision_basedsensor_tpu_torch.ops.cuda import filters as kfil
     from vision_basedsensor_tpu_torch.ops.cuda import moments as kg
     from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
     from vision_basedsensor_tpu_torch.ops.cuda import window_sums as kw
@@ -696,6 +704,7 @@ def main(argv=None) -> None:
     from vision_basedsensor_tpu_torch.ops.patches import patch_origins
     from vision_basedsensor_tpu_torch.ops.peaks import (find_peaks,
                                                         select_peaks_from_cells)
+    from vision_basedsensor_tpu_torch.parallel import spatial
     from vision_basedsensor_tpu_torch.pipeline import (StreamingPipeline,
                                                        initialize,
                                                        prepare_undistortion,
@@ -943,13 +952,44 @@ def main(argv=None) -> None:
                   + 4 * dcfg.open_ksize + 8)
         return _bound(b * h * w * 16 + b * hc * wc * 8, b * h * w * ops_px)
 
+    def filters_bound(b, h, w, prof):
+        """Operations: 2 a tap's multiply-add over the eight passes (both
+        blurs, the NCC's Gaussian and box, each along H and W); bytes: 13 a
+        pixel (the uint8 frame read; gray, area and ncc written, float32)."""
+        taps = 2 * (prof.blur_small_ksize + prof.blur_large_ksize
+                    + 2 * prof.template_size)
+        return _bound(13 * b * h * w, 2 * taps * b * h * w)
+
+    def unsplit(fn):
+        """``fn``, a filter function's plain version, on its frames (and
+        ``mean``) repeated to UNSPLIT_BATCH: the first B outputs, the bits
+        the stencil kernels give."""
+        def run(x, *args, **kw):
+            b = x.shape[0]
+            reps = -(-UNSPLIT_BATCH[int(x.shape[1] > dcfg.low_res_max_rows)]
+                     // b)
+            if reps > 1:
+                def more(t):
+                    return t.repeat(reps, *(1,) * (t.ndim - 1))
+                x = more(x)
+                kw = {k: None if v is None else more(v) for k, v in kw.items()}
+            out = fn(x, *args, **kw)
+            if isinstance(out, torch.Tensor):
+                return out[:b]
+            return tuple(None if t is None else t[:b] for t in out)
+        return run
+
     @contextlib.contextmanager
     def plain_kernels():
-        """Route the detector and the two scans through the kernels' plain
-        versions (for the plain-path comparison on the card)."""
+        """Route the detector, the row shards' filters and the two scans
+        through the kernels' plain versions (for the plain-path comparison
+        on the card; the filters' at UNSPLIT_BATCH, so its times at a
+        smaller batch include the repeated frames)."""
         saved = (detector.fused_fields, detector.gather_windows_paired,
                  detector.gather_windows, detector.window_sums,
-                 kscan.displacement_scan, kscan.associate_sequential)
+                 detector.filter_fields, spatial.dog_fields,
+                 spatial.binary_ncc, kscan.displacement_scan,
+                 kscan.associate_sequential)
 
         def scan(world, seen, max_step, carry):
             rcfg = ReconstructConfig(max_step_displacement_mm=max_step)
@@ -971,6 +1011,9 @@ def main(argv=None) -> None:
         detector.gather_windows = (
             lambda packed, peaks, geom, prof: gather_plain(packed, peaks, prof, 1))
         detector.window_sums = tm.window_sums_xla
+        detector.filter_fields = unsplit(kfil.filter_fields_reference)
+        spatial.dog_fields = unsplit(kfil.dog_fields_reference)
+        spatial.binary_ncc = unsplit(kfil.binary_ncc_reference)
         kscan.displacement_scan = scan
         kscan.associate_sequential = assoc
         try:
@@ -978,7 +1021,44 @@ def main(argv=None) -> None:
         finally:
             (detector.fused_fields, detector.gather_windows_paired,
              detector.gather_windows, detector.window_sums,
+             detector.filter_fields, spatial.dog_fields, spatial.binary_ncc,
              kscan.displacement_scan, kscan.associate_sequential) = saved
+
+    def filters_phase(frames, prof, what):
+        """The stencil kernels (``filter_fields``) on a run's own frames:
+        two launches; gray, area and ncc bit for bit the GEMM path's (at
+        UNSPLIT_BATCH); both timed behind a sleeping kernel and recorded,
+        the GEMM path as the plain version and the library."""
+        b, h, w = frames.shape
+        before = kfil.filters_launches
+        got = kfil.filter_fields(frames, prof, dcfg.dog_offset)
+        launches = kfil.filters_launches - before
+        want = unsplit(kfil.filter_fields_reference)(frames, prof,
+                                                     dcfg.dog_offset)
+        for name, g, r in zip(("gray", "area", "ncc"), got, want):
+            if not torch.equal(g, r):
+                raise AssertionError(
+                    f"filters {what}: {name} differs from the GEMM path in "
+                    f"{int((g != r).sum())} pixels")
+        if launches != 2:
+            raise AssertionError(f"filters {what}: {launches} launches, "
+                                 "expected 2")
+        del got, want
+        n_it = 10 if b * h * w <= 2 ** 29 else 5
+        ms = _device_ms(lambda: kfil.filter_fields(frames, prof,
+                                                   dcfg.dog_offset), n_it)
+        gemm_ms = _device_ms(lambda: kfil.filter_fields_reference(
+            frames, prof, dcfg.dog_offset), n_it)
+        bound = filters_bound(b, h, w, prof)
+        torch.cuda.empty_cache()
+        print(f"filters {what}: stencil kernels == GEMM path (gray, area, "
+              f"ncc); {ms:.3f} ms vs GEMM path {gemm_ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% "
+              f"of bound [{card}]", flush=True)
+        record(f"stencil_kernel {what}", "filters", SRC["filters"][1],
+               launches, 0.0, ms, gemm_ms, bound, gemm_ms)
+        return {"ms": ms, "gemm_ms": gemm_ms, "bound": bound,
+                "launches": launches}
 
     def render(h, w, batch, dist=None):
         scene = default_scene(h, w, dist=dist, device=dev)
@@ -1197,8 +1277,9 @@ def main(argv=None) -> None:
         markers, the drift's direction, its detections against the float32
         run's (the rest frame within the reference's 0.01 px), the DoG mask
         pixels that differ from the float32 mask, the W pass's output dtype;
-        fps both ways in turns and the filter stage's device time (its GEMMs
-        under --profile)."""
+        fps both ways in turns and the filter stage's device time, the
+        stencil kernels against the bfloat16 GEMMs (its GEMMs under
+        --profile)."""
         from vision_basedsensor_tpu_torch.core.imaging import (_sep_filter,
                                                                gaussian_taps)
         batch, h, w = frames.shape
@@ -1292,9 +1373,7 @@ def main(argv=None) -> None:
                    s_fast=s16)
 
         def filters(fdt):
-            area = dog_area_mask(gray, prof, dcfg.dog_offset, fdt).float()
-            return normxcorr_gaussian(area, prof.template_size,
-                                      prof.template_sigma, binary_input=True,
+            return kfil.filter_fields(frames, prof, dcfg.dog_offset,
                                       compute_dtype=fdt)
 
         rec["filter_stage_ms"] = {"float32": _event_ms(lambda: filters(None),
@@ -1544,7 +1623,7 @@ def main(argv=None) -> None:
         rec["launches_batch"] = launch_counts()
         print(f"stream: launches chunked {rec['launches_chunked']}, batch "
               f"{rec['launches_batch']} [{card}]", flush=True)
-        expect = ("fields", "gather", "scan", "associate")
+        expect = ("fields", "gather", "scan", "associate", "filters")
         for which, calls in (("launches_chunked", len(outs)),
                              ("launches_batch", 1)):
             got = rec[which]
@@ -1901,7 +1980,7 @@ def main(argv=None) -> None:
             print(f"ingest: StreamingPipeline.run over {n} frames in "
                   f"{rec['run_first_s']:.3f} s (first counted run); launches "
                   f"{launches} [{card}]", flush=True)
-            expect = {"fields", "gather", "expand_sorted", "scan"}
+            expect = {"fields", "gather", "expand_sorted", "scan", "filters"}
             if (any((v > 0) != (k in expect) for k, v in launches.items())
                     or launches["scan"] != -(-n // batch)):
                 raise AssertionError(f"ingest: expected launches of exactly "
@@ -2023,7 +2102,8 @@ def main(argv=None) -> None:
         tpu_argv = ["track", path, "--tpu-decode", "--chunk", str(chunk),
                     "--output-dir", tpu_dir]
         s_cli = [run_cli("track --tpu-decode", tpu_argv,
-                         {"fields", "gather", "expand_sorted", "scan"})[1]]
+                         {"fields", "gather", "expand_sorted", "scan",
+                          "filters"})[1]]
         torch.cuda.synchronize()
         t = time.perf_counter()
         outs = run_pass()
@@ -2043,7 +2123,8 @@ def main(argv=None) -> None:
                                  f"{valid.shape[0]}")
         s_run += _wall_s(run_pass, 1)
         s_cli.append(run_cli("track --tpu-decode (timed)", tpu_argv,
-                             {"fields", "gather", "expand_sorted", "scan"})[1])
+                             {"fields", "gather", "expand_sorted", "scan",
+                              "filters"})[1])
         same_bytes(os.path.join(tpu_dir, "markers.csv"), want,
                    "track --tpu-decode (second run) vs StreamingPipeline.run")
         rec.update(s_cli=s_cli, s_run=s_run,
@@ -2065,7 +2146,7 @@ def main(argv=None) -> None:
         npy_dir = os.path.join(workdir, "cli_npy")
         run_cli("track .npy", ["track", npy, "--chunk", str(chunk),
                                "--output-dir", npy_dir],
-                {"fields", "gather", "scan"})
+                {"fields", "gather", "scan", "filters"})
         sp = StreamingPipeline(cam, ccfg, device=dev)
         want = os.path.join(workdir, "process_markers.csv")
         write_tracked([sp.process(decoded[i:i + chunk])
@@ -2097,7 +2178,8 @@ def main(argv=None) -> None:
         # 4. detect on the first decoded frame.
         frame0 = os.path.join(workdir, "frame0.npy")
         np.save(frame0, np.load(npy, mmap_mode="r")[0])
-        text, _ = run_cli("detect", ["detect", frame0], {"fields", "gather"})
+        text, _ = run_cli("detect", ["detect", frame0], {"fields", "gather",
+                                                         "filters"})
         rows = text.strip().splitlines()[1:]
         rec["detected"] = len(rows)
         if len(rows) != 65:
@@ -2150,7 +2232,7 @@ def main(argv=None) -> None:
             "tilt", ["--config", cfg_path, "tilt", vert, tilted,
                      "--no-warmup", "--start-range", "0", "0", "--end-range",
                      "1", "1", "--output-dir", exp],
-            {"fields", "gather", "scan"})
+            {"fields", "gather", "scan", "filters"})
         rec.update(tilt_deg=number(text, "Tilt Angle = "),
                    common_markers=int(number(text, "common markers: ")))
         print(f"pose: tilt of a {angle} deg compression at 640x480: "
@@ -2180,7 +2262,7 @@ def main(argv=None) -> None:
         text, _, err = run_pose(
             "indent", ["indent", stairs, "--steps", str(steps), "--step-mm",
                        str(step_mm), "--association", "sequential"],
-            {"fields", "gather", "scan", "associate"})
+            {"fields", "gather", "scan", "associate", "filters"})
         rows = [ln.split(",") for ln in text.splitlines()[1:]]
         rec["indent_markers"] = [int(r[5]) for r in rows]
         rec["indent_worst_step_mm"] = number(err, "worst single-step error: ")
@@ -2259,7 +2341,7 @@ def main(argv=None) -> None:
         out = run_video(frames, scene.cam, mcfg, apply_warmup=False)
         torch.cuda.synchronize()
         launches = rec["launches"]["membrane run_video"] = launch_counts()
-        expect = {"fields", "gather", "scan"}
+        expect = {"fields", "gather", "scan", "filters"}
         if any((n > 0) != (k in expect) for k, n in launches.items()):
             raise AssertionError(f"calibrate: membrane run_video launched "
                                  f"{launches}, expected {sorted(expect)}")
@@ -2504,7 +2586,7 @@ def main(argv=None) -> None:
                     "serve", "run-live --tpu-decode",
                     ["run-live", url, "--tpu-decode", "--publish", "0",
                      "--batch", str(batch), "--max-frames", str(n_live)],
-                    {"expand_sorted", "fields", "gather", "scan"},
+                    {"expand_sorted", "fields", "gather", "scan", "filters"},
                     rec["launches"])
             finally:
                 StreamingPipeline.process = process
@@ -2748,10 +2830,11 @@ def main(argv=None) -> None:
         step = make_sharded_pipeline(mesh, scene.cam, cfg)
         step(shard_frames(frames[:2 * n_sh], mesh), ref)    # warm-up
         out, counts = counted(lambda: step(shard_frames(frames, mesh), ref))
-        expect(counts, "multi", fields=n_sh, gather=n_sh, scan=1)
+        expect(counts, "multi", fields=n_sh, gather=n_sh, scan=1,
+               filters=2 * n_sh)
         per_shard = step.last_shard_launches
-        if any((c["fields"], c["gather"]) != (1, 1) or
-               sum(c.values()) != 2 for c in per_shard):
+        if any((c["fields"], c["gather"], c["filters"]) != (1, 1, 2) or
+               sum(c.values()) != 4 for c in per_shard):
             raise AssertionError(f"multi: per-shard launches {per_shard}")
         errs = close(out, base, "multi")
         dxy = detections_as_sets(out.detections, base.detections,
@@ -2880,6 +2963,7 @@ def main(argv=None) -> None:
         sout, counts = counted(lambda: sstep(shard_frames(sframes, mesh),
                                              sref))
         expect(counts, "multi sequential", fields=n_sh, gather=n_sh, scan=1,
+               filters=2 * n_sh,
                associate=1)
         rec["sequential"] = {"launches": counts,
                              "max_abs_err": close(sout, sbase,
@@ -3003,12 +3087,13 @@ def main(argv=None) -> None:
             out, counts = counted(
                 lambda: step(shard_frames(frames, mesh), ref), mesh)
             n_sh = len(mesh.grid) * mesh.spatial
-            expect = {"window_sums": n_sh, "scan": 1}
+            expect = {"window_sums": n_sh, "scan": 1, "filters": 2 * n_sh}
             if {k: v for k, v in counts.items() if v} != expect:
                 raise AssertionError(f"spatial {what}: launches {counts}, "
                                      f"expected {expect}")
             per_shard = step.last_shard_launches
-            if any(c["window_sums"] != 1 or sum(c.values()) != 1
+            if any(c["window_sums"] != 1 or c["filters"] != 2
+                   or sum(c.values()) != 3
                    for c in per_shard) or len(per_shard) != n_sh:
                 raise AssertionError(f"spatial {what}: per-shard launches "
                                      f"{per_shard}")
@@ -3206,7 +3291,8 @@ def main(argv=None) -> None:
             fstep = make_sharded_pipeline(mesh, fcam, cfg)
             fout, k_step = counted(lambda: fstep(sh, ref), mesh)
             if {k: v for k, v in k_step.items() if v} != {
-                    "window_sums": len(mesh.grid) * s, "scan": 1}:
+                    "window_sums": len(mesh.grid) * s, "scan": 1,
+                    "filters": 2 * len(mesh.grid) * s}:
                 raise AssertionError(f"spatial feed {key}: step launches "
                                      f"{k_step}")
             ferr = close(fout, process_frames(single_x, ref, fcam, xcfg),
@@ -3300,7 +3386,8 @@ def main(argv=None) -> None:
                     "run-live --tpu-decode",
                     ["run-live", url, "--tpu-decode", "--publish", "0",
                      "--resume", sess, "--batch", str(batch), "--max-frames",
-                     str(n)], {"expand_sorted", "fields", "gather", "scan"})
+                     str(n)], {"expand_sorted", "fields", "gather", "scan",
+                              "filters"})
             finally:
                 StreamingPipeline.process = process
                 publish.StatePublisher.update = update
@@ -4036,8 +4123,11 @@ def main(argv=None) -> None:
             frames_of.clear()
             frames_of[key] = render(h, w, batch)
         scene, frames = frames_of[key]
-        expect = ({"fields", "gather"} if fused else {"window_sums"}) | {"scan"}
+        expect = ({"fields", "gather"} if fused else {"window_sums"}) | {
+            "scan", "filters"}
         rec, out = main_path(scene, frames, label, run_cfg, expect)
+        if fused:
+            rec["filters"] = filters_phase(frames, prof, f"{batch}x{h}x{w}")
         if label == RUNS[0][0]:
             recon4 = out.recon         # for phase 11's contact_signal
             records["phases"]["displacement_scan"] = scan_phase(

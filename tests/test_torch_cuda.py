@@ -1138,6 +1138,158 @@ def test_encode_jpeg_without_cv2_on_the_card(cuda, monkeypatch):
     assert float(err.mean()) < 4
 
 
+def _filter_frames(dev, b, h, w, seed, dtype=torch.uint8):
+    """Rendered marker frames (cut to ``h x w``) plus seeded noise."""
+    from vision_basedsensor_tpu_torch.synth import default_scene, render_frames
+    scene = default_scene(max(h, 16), max(w, 16), device=dev)
+    d = torch.zeros((b, 65, 3), device=dev)
+    d[:, :, 2] = -0.3 * torch.arange(b, device=dev)[:, None]
+    f = render_frames(scene, d).float()[:, :h, :w]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = (f + 4.0 * torch.randn(f.shape, generator=g, device=dev)).clamp(0, 255)
+    if dtype == torch.uint8:
+        return f.round().to(torch.uint8).contiguous()
+    return f.contiguous()
+
+
+def _gemm_filters(frames, prof, mean=None, batch=512):
+    """The plain path on the card: the banded cuBLAS GEMMs and their
+    elementwise operations, on ``frames`` repeated to ``batch`` frames (the
+    outputs of the first ``B``). Below that cuBLAS may split a GEMM's sum
+    (a 480x640 batch of 4 does), and the NCC then differs from the
+    unsplit sum in its last bits: up to 5.9e-6 on a 240x640 row shard."""
+    from vision_basedsensor_tpu_torch.core.imaging import to_grayscale
+    from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
+    from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
+    b = frames.shape[0]
+    reps = -(-batch // b)
+    frames = frames.repeat(reps, *(1,) * (frames.ndim - 1))
+    if mean is not None:
+        mean = mean.repeat(reps, 1, 1)
+    gray = to_grayscale(frames).contiguous()
+    area = dog_area_mask(gray, prof, DetectConfig().dog_offset).float()
+    ncc = normxcorr_gaussian(area, prof.template_size, prof.template_sigma,
+                             binary_input=True, mean=mean)
+    return gray[:b], area[:b], ncc[:b]
+
+
+@pytest.mark.parametrize("shape,profile,dtype", [
+    ((4, 480, 640), "low_res", torch.uint8),
+    ((2, 1080, 1920), "high_res", torch.uint8),
+    ((2, 437, 467), "low_res", torch.uint8),    # W % 4 != 0
+    ((2, 480, 640), "low_res", torch.float32),  # gray rounded in the kernel
+    ((3, 61, 77), "high_res", torch.uint8),     # n < k: no interior span
+    ((2, 7, 5), "low_res", torch.uint8),
+])
+def test_filters_kernel_matches_gemm_path(cuda, shape, profile, dtype):
+    """gray, area and ncc of the stencil kernels bit for bit equal to the
+    GEMM path on the same card (where cuBLAS does not split the sum), in
+    two launches; gray and area also at the test's own batch."""
+    from vision_basedsensor_tpu_torch.ops.cuda import filters as kfil
+    prof = getattr(DetectConfig(), profile)
+    frames = _filter_frames(cuda, *shape, seed=7, dtype=dtype)
+    want = _gemm_filters(frames, prof, batch=2 if shape[1] == 1080 else 512)
+    before = kfil.filters_launches
+    got = kfil.filter_fields(frames, prof, DetectConfig().dog_offset)
+    assert kfil.filters_launches == before + 2
+    for name, g, w in zip(("gray", "area", "ncc"), got, want):
+        assert torch.equal(g, w), name
+    own = _gemm_filters(frames, prof, batch=1)
+    assert torch.equal(got[0], own[0]) and torch.equal(got[1], own[1])
+    if shape[1] >= 437:   # whole markers in the frame
+        assert 0.0 < float(want[1].mean()) < 1.0
+        assert float(want[2].max()) > 0.5
+
+
+def test_filters_kernel_row_shard_and_strided_frames(cuda):
+    """A row shard (rows 100-339 with the whole frame's mean, as
+    parallel/spatial.py runs it), column-cropped frames (strided rows) and
+    color frames: bit for bit the GEMM path."""
+    from vision_basedsensor_tpu_torch.ops.cuda import filters as kfil
+    prof = DetectConfig().low_res
+    frames = _filter_frames(cuda, 2, 480, 640, seed=9)
+    _, full, _ = _gemm_filters(frames, prof)
+    mean = (full.sum((-2, -1)) / (480 * 640))[:, None, None]
+    block = frames[:, 100:340]
+    gray, area, _ = kfil.dog_fields(block, prof, DetectConfig().dog_offset)
+    ncc = kfil.binary_ncc(area, prof, mean=mean)
+    want = _gemm_filters(block, prof, mean=mean)
+    for name, g, w in zip(("gray", "area", "ncc"), (gray, area, ncc), want):
+        assert torch.equal(g, w), name
+
+    crop = frames[:, :, 37:601]
+    assert crop.stride(1) == 640
+    for got, w in zip(kfil.filter_fields(crop, prof), _gemm_filters(crop, prof)):
+        assert torch.equal(got, w)
+    color = torch.stack([frames, frames.roll(1, -1), frames.flip(-1)], -1)
+    for got, w in zip(kfil.filter_fields(color, prof),
+                      _gemm_filters(color, prof)):
+        assert torch.equal(got, w)
+
+
+def test_detect_batch_runs_the_filter_kernels(cuda, tmp_path):
+    """A detect batch launches the two filter kernels, and its traced
+    ``vbs.detect.filters`` span launches no GEMM: both kernels, a fill."""
+    import json
+    import re
+
+    from vision_basedsensor_tpu_torch.detect.detector import detect_markers
+    from vision_basedsensor_tpu_torch.ops.cuda import filters as kfil
+    from vision_basedsensor_tpu_torch.utils.profiling import profile_to
+    _, frames = _mesh_inputs(cuda, b=4)
+    cfg = DetectConfig()
+    detect_markers(frames, cfg)
+    torch.cuda.synchronize()
+    before = kfil.filters_launches
+    with profile_to(str(tmp_path)):
+        detect_markers(frames, cfg)
+        torch.cuda.synchronize()
+    assert kfil.filters_launches == before + 2
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    span = [e for e in events if e.get("name") == "vbs.detect.filters"
+            and e.get("cat") == "user_annotation"]
+    assert len(span) == 1
+    a, b = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if str(e.get("cat")).startswith("cuda_")
+                and a <= e["ts"] <= b and "correlation" in e.get("args", {})}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launched]
+    assert sum("stencil_kernel" in k for k in kernels) == 2, kernels
+    assert not [k for k in kernels
+                if re.search(r"gemm|nvjet|xmma|cutlass", k, re.I)], kernels
+
+
+def test_filters_wrappers_refuse_bad_inputs(cuda):
+    from vision_basedsensor_tpu_torch.ops.cuda import filters as kfil
+    prof = DetectConfig().low_res
+    frames = _filter_frames(cuda, 1, 64, 96, seed=1)
+    with pytest.raises(TypeError):
+        kfil.dog_fields(frames.int(), prof)
+    with pytest.raises(ValueError):
+        kfil.dog_fields(frames.transpose(1, 2).contiguous().transpose(1, 2),
+                        prof)
+    with pytest.raises(ValueError):
+        kfil.dog_fields(frames[0], prof)
+    _, area, count = kfil.dog_fields(frames, prof)
+    with pytest.raises(TypeError):
+        kfil.binary_ncc(area.double(), prof)
+    with pytest.raises(ValueError):
+        kfil.binary_ncc(area.transpose(1, 2).contiguous().transpose(1, 2),
+                        prof)
+    with pytest.raises(ValueError):
+        kfil.binary_ncc(area, prof, count=count.cpu())
+    with pytest.raises(TypeError):
+        kfil.binary_ncc(area, prof, count=count.float())
+    with pytest.raises(ValueError):
+        kfil.binary_ncc(area, prof, mean=torch.zeros(2, device=cuda))
+    with pytest.raises(ValueError):     # neither count nor mean
+        kfil.binary_ncc(area, prof)
+    with pytest.raises(ValueError):     # both
+        kfil.binary_ncc(area, prof, count=count,
+                        mean=torch.zeros(1, device=cuda))
+
+
 def test_detect_never_waits_for_the_card(cuda):
     """Once its cached filter matrices are on the card, detect makes no
     call that makes the host wait for the card: parallel/mesh.py issues the
@@ -1174,7 +1326,8 @@ def _spatial_inputs(cuda):
 def test_spatial_mesh_on_one_card_matches_one_batch(cuda):
     """A [cuda:0, cuda:0] spatial mesh (two row shards in turn on one card)
     equals one process_frames batch of the unfused branch; each row shard
-    launches the window-sums kernel once, the step the scan once."""
+    launches the window-sums kernel once and the two filter kernels, the
+    step the scan once."""
     from vision_basedsensor_tpu_torch.ops.cuda import scan as kscan
     from vision_basedsensor_tpu_torch.parallel import (make_mesh,
                                                        make_sharded_pipeline,
@@ -1186,8 +1339,8 @@ def test_spatial_mesh_on_one_card_matches_one_batch(cuda):
     out = step(shard_frames(frames, mesh), ref)
     torch.cuda.synchronize()
     assert kscan.scan_launches == s0 + 1
-    assert [(c["window_sums"], sum(c.values()))
-            for c in step.last_shard_launches] == [(1, 1), (1, 1)]
+    assert [(c["window_sums"], c["filters"], sum(c.values()))
+            for c in step.last_shard_launches] == [(1, 2, 3), (1, 2, 3)]
     _assert_sharded_equal(out, base)
     assert int(out.tracked.valid.sum(-1).min()) == 65
 

@@ -19,11 +19,17 @@ import torch.nn.functional as F
 _BGR_WEIGHTS = (0.114, 0.587, 0.299)
 
 
+def is_color(frames: torch.Tensor) -> bool:
+    """Whether ``frames`` are color ``(..., H, W, 3)``, not gray
+    ``(..., H, W)``: the one rule of the frame layout."""
+    return frames.ndim >= 1 and frames.shape[-1] == 3
+
+
 def to_grayscale(frames: torch.Tensor, channel_order: str = "bgr",
                  quantize: bool = True) -> torch.Tensor:
     """``(..., H, W, 3)`` color (or ``(..., H, W)`` gray) -> float32 gray,
     rounded to the nearest integer when ``quantize`` is set."""
-    if frames.ndim >= 1 and frames.shape[-1] == 3:
+    if is_color(frames):
         w = _BGR_WEIGHTS if channel_order == "bgr" else _BGR_WEIGHTS[::-1]
         w = torch.tensor(w, dtype=torch.float32, device=frames.device)
         gray = torch.tensordot(frames.float(), w, dims=([-1], [0]))

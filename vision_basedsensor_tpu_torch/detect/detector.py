@@ -1,7 +1,8 @@
 """2D marker detection: batched frames -> fixed-size candidate sets.
 
 Port of ``vision_basedsensor_tpu/detect/detector.py``: DoG area mask ->
-binary NCC, then one of the reference's two branches, chosen by its rule
+binary NCC (``ops/cuda/filters.py``: two stencil kernels on the card), then
+one of the reference's two branches, chosen by its rule
 (:func:`takes_fused_branch`):
 
 * fused (``detector.py:174-221``): fused field kernel
@@ -22,12 +23,12 @@ import torch
 
 from vision_basedsensor_tpu_torch.config import DetectConfig, DetectProfile
 from vision_basedsensor_tpu_torch.core.imaging import (band_and_opening,
-                                                       to_grayscale)
+                                                       is_color)
 from vision_basedsensor_tpu_torch.ops.cuda.fields import fused_fields
+from vision_basedsensor_tpu_torch.ops.cuda.filters import filter_fields
 from vision_basedsensor_tpu_torch.ops.cuda.moments import (gather_windows,
                                                            gather_windows_paired)
 from vision_basedsensor_tpu_torch.ops.cuda.window_sums import window_sums
-from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
 from vision_basedsensor_tpu_torch.ops.moments import (
     complete_occluded,
     cut_geometry,
@@ -36,7 +37,6 @@ from vision_basedsensor_tpu_torch.ops.moments import (
     moments_from_patches_paired,
     moments_from_patches_paired_mxu,
 )
-from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
 from vision_basedsensor_tpu_torch.ops.peaks import (cell_maxima, peak_field,
                                                     select_peaks_from_cells)
 from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
@@ -146,22 +146,20 @@ def _detect(frames: torch.Tensor, cfg: DetectConfig,
             axis_scale: torch.Tensor | None
             ) -> tuple[Detections, torch.Tensor]:
     with trace_annotation("vbs.detect.filters"):
-        gray = to_grayscale(frames, cfg.channel_order)
+        color = is_color(frames)
         if profile is None:
-            profile = (cfg.low_res if gray.shape[-2] <= cfg.low_res_max_rows
+            rows = frames.shape[-3] if color else frames.shape[-2]
+            profile = (cfg.low_res if rows <= cfg.low_res_max_rows
                        else cfg.high_res)
-        squeeze = gray.ndim == 2
+        squeeze = frames.ndim == (3 if color else 2)
         if squeeze:
-            gray = gray[None]
+            frames = frames[None]
 
         # fast_filters: the filter GEMMs in bfloat16 with float32
         # accumulation (detector.py:157-161 of the reference).
         fdt = torch.bfloat16 if cfg.fast_filters else None
-        area = dog_area_mask(gray, profile, cfg.dog_offset, fdt).float()
-        ncc = normxcorr_gaussian(area, profile.template_size,
-                                 profile.template_sigma, binary_input=True,
-                                 compute_dtype=fdt)
-        gray = gray.contiguous()
+        gray, area, ncc = filter_fields(frames, profile, cfg.dog_offset,
+                                        cfg.channel_order, fdt)
     h, w = gray.shape[-2:]
     if takes_fused_branch(cfg, h, w, profile):
         with trace_annotation("vbs.detect.fields"):

@@ -15,7 +15,8 @@ COUNTERS = {"fields": ("fields", "fields_launches"),
             "window_sums_packed": ("window_sums", "packed_launches"),
             "expand_sorted": ("expand", "launches"),
             "scan": ("scan", "scan_launches"),
-            "associate": ("scan", "assoc_launches")}
+            "associate": ("scan", "assoc_launches"),
+            "filters": ("filters", "filters_launches")}
 
 
 def _module(name: str):

@@ -28,12 +28,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fields.cu", "gather.cu", "window_sums.cu", "expand_sorted.cu",
-           "displacement_scan.cu", "associate.cu")
+           "displacement_scan.cu", "associate.cu", "filters.cu")
 BUILD_DIR = _PKG.parent / "build" / "vbs_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # ncc, area, gray, packed, cval, cidx, B, H, W, thr, band_w, peak_w,
     # open_k, halo, stream
@@ -56,6 +56,14 @@ _SIGNATURES = {
     # out xy, axes, angle, valid, last, stream
     "vbs_associate_sequential": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  _P, _P, _P, _P, _P, _P),
+    # src, src_u8, frame stride, row stride, gray, area, count, B, H, W,
+    # passes, ka, taps_a, kb, taps_b, offset, thr_lo, thr_hi, stream
+    "vbs_dog_fields": (_P, _I, _L, _L, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+                       _I, _P, _I, _F, _F, _P),
+    # area, ncc, count, mean, B, H, W, passes, k, taps_g, taps_box, inv_hw,
+    # inv_n, t0, min_var, tiny, stream
+    "vbs_binary_ncc": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _F, _F,
+                       _F, _F, _F, _P),
 }
 
 _lib: ctypes.CDLL | None = None

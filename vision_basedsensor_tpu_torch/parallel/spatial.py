@@ -47,10 +47,10 @@ from vision_basedsensor_tpu_torch.core.imaging import (band_and_opening,
 from vision_basedsensor_tpu_torch.core.undistort import remap_bilinear
 from vision_basedsensor_tpu_torch.detect.detector import _finalize_candidates
 from vision_basedsensor_tpu_torch.ops.cuda import launch_counts
+from vision_basedsensor_tpu_torch.ops.cuda.filters import (binary_ncc,
+                                                           dog_fields)
 from vision_basedsensor_tpu_torch.ops.cuda.window_sums import window_sums
-from vision_basedsensor_tpu_torch.ops.dog import dog_area_mask
 from vision_basedsensor_tpu_torch.ops.moments import CutGeometry, cut_geometry
-from vision_basedsensor_tpu_torch.ops.ncc import normxcorr_gaussian
 from vision_basedsensor_tpu_torch.ops.peaks import (Peaks, cell_maxima,
                                                     peak_field, peaks_from_top,
                                                     top_cells)
@@ -211,8 +211,8 @@ def detect_row_shards(blocks, grid, hs: int, plan: RowPlan,
         if smap is not None:
             x = remap_bilinear(to_grayscale(x, dcfg.channel_order), smap,
                                row0=sh.blk.src[0] - top, height=hd)
-        gray = to_grayscale(x, dcfg.channel_order).contiguous()
-        area = dog_area_mask(gray, prof, dcfg.dog_offset, fdt).float()
+        gray, area, _ = dog_fields(x, prof, dcfg.dog_offset,
+                                   dcfg.channel_order, fdt)
         (o0, o1), a = sh.blk.own, sh.blk.block[0]
         return gray, area, area[:, o0 - a:o1 - a].sum(dim=(-2, -1))
 
@@ -236,9 +236,7 @@ def detect_row_shards(blocks, grid, hs: int, plan: RowPlan,
     # 4. NCC, band, opening and the peak field on the block; the shard's own
     # cells ranked, their flat indices in the frame.
     def ncc_cells(sh):
-        ncc = normxcorr_gaussian(sh.area, prof.template_size,
-                                 prof.template_sigma, binary_input=True,
-                                 compute_dtype=fdt, mean=sh.mean)
+        ncc = binary_ncc(sh.area, prof, fdt, mean=sh.mean)
         band, area_open = band_and_opening(ncc, sh.area, dcfg.ncc_threshold,
                                            prof.band_window, dcfg.open_ksize)
         sp = peak_field(ncc, dcfg.ncc_threshold, prof.peak_window)
