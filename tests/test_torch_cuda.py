@@ -10,19 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parity import assert_recon_close, cuda  # noqa: F401
+
 from vision_basedsensor_tpu_torch.config import DetectConfig, PipelineConfig
 from vision_basedsensor_tpu_torch.ops.cuda import fields as kf
 from vision_basedsensor_tpu_torch.ops.cuda import moments as kg
 from vision_basedsensor_tpu_torch.ops.peaks import Peaks
 
 pytestmark = pytest.mark.cuda_only
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
 
 
 def _random_fields(rng, b, h, w, dev):
@@ -1014,15 +1009,6 @@ def _mesh_inputs(dev, b=6):
     return scene, render_frames(scene, d)
 
 
-def _assert_sharded_equal(out, base):
-    """The reference's sharded-vs-single tolerances
-    (tests/test_parallel.py): world and cum_path within 1e-4, seen equal."""
-    assert torch.equal(out.recon.seen, base.recon.seen)
-    for name in ("world", "cum_path"):
-        a, b = getattr(out.recon, name), getattr(base.recon, name)
-        assert float((a - b).abs().max()) <= 1e-4, name
-
-
 def test_mesh_on_one_card_matches_one_batch(cuda):
     """A [cuda:0, cuda:0] mesh (the shards in turn on one card) equals one
     process_frames batch; each shard launches the fields and gather kernels
@@ -1045,7 +1031,7 @@ def test_mesh_on_one_card_matches_one_batch(cuda):
     assert kscan.scan_launches == s0 + 1
     assert [(c["fields"], c["gather"]) for c in step.last_shard_launches] \
         == [(1, 1), (1, 1)]
-    _assert_sharded_equal(out, base)
+    assert_recon_close(out, base)
     assert int(out.tracked.valid.sum(-1).min()) == 65
     assert {t["name"].split(".")[0] for t in step.last_transfers} \
         == {"ref", "detections"}
@@ -1084,7 +1070,7 @@ def test_shard_on_a_second_card(cuda):
     out = step(sharded, ref)
     assert out.recon.world.device == cuda
     assert step.last_shard_launches[1]["fields"] == 1
-    _assert_sharded_equal(out, base)
+    assert_recon_close(out, base)
     back = [t for t in step.last_transfers
             if t["src"] == str(dev1) and t["dst"] == str(cuda)]
     assert back and all(t["name"].startswith("detections.") for t in back)
@@ -1341,7 +1327,7 @@ def test_spatial_mesh_on_one_card_matches_one_batch(cuda):
     assert kscan.scan_launches == s0 + 1
     assert [(c["window_sums"], c["filters"], sum(c.values()))
             for c in step.last_shard_launches] == [(1, 2, 3), (1, 2, 3)]
-    _assert_sharded_equal(out, base)
+    assert_recon_close(out, base)
     assert int(out.tracked.valid.sum(-1).min()) == 65
 
 
@@ -1364,7 +1350,7 @@ def test_spatial_mesh_on_two_cards(cuda):
     out = step(sharded, ref)
     assert out.recon.world.device == cuda
     assert [c["window_sums"] for c in step.last_shard_launches] == [1, 1]
-    _assert_sharded_equal(out, base)
+    assert_recon_close(out, base)
     halo = {(t["src"], t["dst"]) for t in step.last_transfers
             if t["name"] == "halo"}
     assert halo == {(str(cuda), str(dev1)), (str(dev1), str(cuda))}

@@ -144,3 +144,23 @@ def test_profile_dir_traces_the_replay_command(run, tmp_path):
             "vbs.stream.readback", "vbs.io.table", "vbs.pipeline.chunk",
             "vbs.detect"} <= names
     assert names <= set(SPANS)
+
+
+@pytest.mark.cuda_only
+def test_process_frames_trace_on_the_card(tmp_path):
+    """``profile_to``'s trace of one ``process_frames`` batch on the card
+    holds the program's span and device time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda", 0)
+    scene = default_scene(H, W, device=dev)
+    frames = render_frames(scene, torch.zeros((B, 65, 3), device=dev))
+    cfg = PipelineConfig()
+    ref = pipeline.initialize(frames[0], cfg)
+    pipeline.process_frames(frames, ref, scene.cam, cfg)
+    with profile_to(str(tmp_path)) as prof:
+        pipeline.process_frames(frames, ref, scene.cam, cfg)
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert "vbs.pipeline.process_frames" in {e.get("name") for e in events}
+    assert sum(e.device_time_total for e in prof.key_averages()) > 0

@@ -23,11 +23,10 @@
 // and writes 128 B contiguously; 8 blocks of 256 threads an SM keep enough
 // loads in flight to overlap them with the stores. On an H100 (SXM, 700 W)
 // it runs at 66-78% of the bound at the detector's shapes (`chip_smoke.py
-// --only gather`). A design that brings the windows in with Hopper's copy
-// engine (TMA), csrc/gather_tma.cu, timed against this one by `--only
-// gather --baseline`, was 1-15% slower: the engine takes only 16-byte
-// aligned row starts, so its boxes are realigned through shared memory by
-// the threads that store, which costs what the asynchronous loads save.
+// --only gather`). A version that brings the windows in with Hopper's copy
+// engine (TMA) ran 1-15% slower: the engine takes only 16-byte aligned row
+// starts, so its boxes were realigned through shared memory by the threads
+// that store, which cost what the asynchronous loads saved.
 #include <cuda_runtime.h>
 
 namespace {
