@@ -20,6 +20,7 @@ from vision_basedsensor_tpu_torch.config import AnalysisConfig
 from vision_basedsensor_tpu_torch.core.fit import (PlaneFit, fit_plane,
                                                    fit_plane_robust, masked_mean)
 from vision_basedsensor_tpu_torch.reconstruct.displacement import Reconstruction
+from vision_basedsensor_tpu_torch.utils.graphs import replay
 from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 
@@ -41,33 +42,52 @@ class ContactState(NamedTuple):
     valid: torch.Tensor           # (B,) enough markers to fit a plane
 
 
+# (device, dtype, initial_mode) -> the start points on that device.
+_START: dict = {}
+
+
 def _start_points(like: torch.Tensor, initial_mode: str) -> torch.Tensor:
     """The 65 markers' start points ``(65, 3)``: the dome layout's X, Y and,
     for ``initial_mode='shell'``, its heights, else Z = 0 (the reference's
-    default, ``ForceDistribution.py:15,222``)."""
-    table = torch.as_tensor(layout.dome_layout()[:, 1:], dtype=like.dtype,
-                            device=like.device)
-    z0 = table[:, 2] if initial_mode == "shell" else torch.zeros_like(table[:, 2])
-    return torch.stack([table[:, 0], table[:, 1], z0], dim=-1)
+    default, ``ForceDistribution.py:15,222``). Sent to ``like``'s device
+    once (a copy from the host waits for the card) and shared: callers
+    must not write to it."""
+    key = (like.device, like.dtype, initial_mode)
+    start = _START.get(key)
+    if start is None:
+        table = torch.as_tensor(layout.dome_layout()[:, 1:], dtype=like.dtype,
+                                device=like.device)
+        z0 = (table[:, 2] if initial_mode == "shell"
+              else torch.zeros_like(table[:, 2]))
+        start = _START[key] = torch.stack([table[:, 0], table[:, 1], z0],
+                                          dim=-1)
+    return start
 
 
 def contact_state_sequence(recon: Reconstruction, cfg: AnalysisConfig,
                            initial_mode: str = "plane") -> ContactState:
-    """Contact-plane fit over each frame's cumulative displacement field."""
+    """Contact-plane fit over each frame's cumulative displacement field
+    (the fit a CUDA graph on the card: ``utils/graphs.py``)."""
     with trace_annotation("vbs.contact"):
         with trace_annotation("vbs.contact.layout"):
             start = _start_points(recon.world, initial_mode)      # (65, 3)
         with trace_annotation("vbs.contact.fit"):
-            disp = cfg.deviation_scale * recon.from_first         # (B, 65, 3)
-            end = start[None] + disp
-            valid = recon.seen
-            plane = (fit_plane_robust(end, valid) if cfg.robust_plane_fit
-                     else fit_plane(end, valid))
-            mean_vec = masked_mean(disp, valid[..., None], axis=-2)
-            mean_mag = masked_mean(recon.from_first_norm, valid, axis=-1)
-            return ContactState(tilt_deg=plane.tilt_deg, plane=plane,
-                                mean_vector=mean_vec, mean_magnitude=mean_mag,
-                                valid=valid.sum(-1) >= 3)
+            return replay("contact", _contact_fit, start, recon.from_first,
+                          recon.from_first_norm, recon.seen, cfg)
+
+
+def _contact_fit(start: torch.Tensor, from_first: torch.Tensor,
+                 from_first_norm: torch.Tensor, valid: torch.Tensor,
+                 cfg: AnalysisConfig) -> ContactState:
+    disp = cfg.deviation_scale * from_first                       # (B, 65, 3)
+    end = start[None] + disp
+    plane = (fit_plane_robust(end, valid) if cfg.robust_plane_fit
+             else fit_plane(end, valid))
+    mean_vec = masked_mean(disp, valid[..., None], axis=-2)
+    mean_mag = masked_mean(from_first_norm, valid, axis=-1)
+    return ContactState(tilt_deg=plane.tilt_deg, plane=plane,
+                        mean_vector=mean_vec, mean_magnitude=mean_mag,
+                        valid=valid.sum(-1) >= 3)
 
 
 def start_end_displacement(recon: Reconstruction,

@@ -32,7 +32,12 @@ def masked_lstsq(A: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.
     AtA = torch.einsum("...np,...nq->...pq", Am, A)
     Atb = torch.einsum("...np,...n->...p", Am, b)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    return torch.linalg.solve(AtA + 1e-9 * eye, Atb[..., None])[..., 0]
+    # ``solve``'s LU without its error check, which waits for the card; the
+    # Tikhonov term keeps the system regular (``jnp.linalg.solve`` does not
+    # raise either).
+    x, _ = torch.linalg.solve_ex(AtA + 1e-9 * eye, Atb[..., None],
+                                 check_errors=False)
+    return x[..., 0]
 
 
 class PlaneFit(NamedTuple):

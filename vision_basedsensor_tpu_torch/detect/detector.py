@@ -39,6 +39,7 @@ from vision_basedsensor_tpu_torch.ops.moments import (
 )
 from vision_basedsensor_tpu_torch.ops.peaks import (cell_maxima, peak_field,
                                                     select_peaks_from_cells)
+from vision_basedsensor_tpu_torch.utils.graphs import replay
 from vision_basedsensor_tpu_torch.utils.profiling import trace_annotation
 
 # The reference's row-tiled field kernel halo (ops/pallas/fields.py:164).
@@ -91,7 +92,14 @@ class Detections(NamedTuple):
 def _finalize_candidates(sums: torch.Tensor, peaks, cfg: DetectConfig,
                          axis_scale: torch.Tensor | None = None
                          ) -> tuple[Detections, torch.Tensor]:
-    """Candidate geometry + validity gates from the per-peak window sums."""
+    """Candidate geometry + validity gates from the per-peak window sums
+    (a CUDA graph on the card: ``utils/graphs.py``)."""
+    return replay("detect.finalize", _finalize, sums, peaks, cfg, axis_scale)
+
+
+def _finalize(sums: torch.Tensor, peaks, cfg: DetectConfig,
+              axis_scale: torch.Tensor | None
+              ) -> tuple[Detections, torch.Tensor]:
     fin = finalize(sums, peaks.xy, peaks.valid, axis_scale=axis_scale)
     center = fin.band_center if cfg.centroid_mode == "band" else fin.photo_center
     if cfg.diameter_mode == "mask":

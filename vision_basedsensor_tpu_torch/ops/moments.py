@@ -454,9 +454,13 @@ def finalize(sums: torch.Tensor, peak_xy: torch.Tensor,
         scale = nanmedian(ratio)  # one scalar across the whole batch
         scale = torch.where(torch.isfinite(scale), torch.clamp(scale, 0.9, 1.05),
                             torch.ones_like(scale))
+    elif isinstance(axis_scale, torch.Tensor):
+        scale = axis_scale.to(p_major.device, p_major.dtype)
     else:
-        scale = torch.as_tensor(axis_scale, dtype=p_major.dtype,
-                                device=p_major.device)
+        # Filled on the device: a number sent from the host would wait for
+        # the card (and cannot be captured in a CUDA graph).
+        scale = torch.full((), float(axis_scale), dtype=p_major.dtype,
+                           device=p_major.device)
     p_major = p_major * scale
     p_minor = p_minor * scale
 
