@@ -15,6 +15,8 @@ import json
 import os
 import sys
 
+import torch
+
 from vbs_bench.loads import replay
 from vbs_bench.reference import camera, config
 from vbs_bench.reference import pipeline as ref
@@ -47,6 +49,11 @@ class ReferenceProgram:
         with ref.precision(self.tf32):
             return ref.process_frames(frames, r, cam, cfg)
 
+    def stream(self, cam, cfg, r):
+        """A session whose ``process(frames)`` returns the chunk's frames of
+        the reference run over every frame of the session so far."""
+        return _Session(self, cam, cfg, r)
+
     def track_video(self, path: str, chunk: int, out_dir: str) -> None:
         """``markers.csv`` of the recording, from the coefficients that the
         benchmark's encoder wrote for the same seed."""
@@ -67,6 +74,33 @@ class ReferenceProgram:
 
     def layer_targets(self) -> list:
         return []
+
+
+class _Session:
+    """``ReferenceProgram.stream``'s session."""
+
+    def __init__(self, program, cam, cfg, r):
+        self.program, self.cam, self.cfg, self.ref = program, cam, cfg, r
+        self.frames = None
+
+    def process(self, frames):
+        self.frames = frames if self.frames is None else torch.cat(
+            [self.frames, frames])
+        out = self.program.process_frames(self.frames, self.ref, self.cam,
+                                          self.cfg)
+        cut = _last(out, frames.shape[0])
+        return cut._replace(tracked=cut.tracked._replace(
+            ref_xy=out.tracked.ref_xy, ring=out.tracked.ring))
+
+
+def _last(x, n: int):
+    """``x`` with every tensor cut to its last ``n`` rows (frames), named
+    tuples walked."""
+    if isinstance(x, torch.Tensor):
+        return x[-n:]
+    if isinstance(x, tuple):
+        return type(x)(*(_last(v, n) for v in x))
+    return x
 
 
 def readings(workload: str, seeds, seconds: float, device,

@@ -1,7 +1,11 @@
 """The general generators of load, one for each ``kind`` that a traffic
-file under ``traffic/`` names: ``batch`` (closed loop of batches) and
-``replay`` (the replay command, back to back). A load sets its cell up from the seed, runs units
-of work and checks what they produced against the reference."""
+file under ``traffic/`` names, in ``loads/<kind>.py``: ``batch`` (closed
+loop of batches), ``batch_unfused`` (the same, checked against the
+reference that holds the unfused branch), ``replay`` (the replay command,
+back to back) and ``stream`` (closed loop of streaming sessions fed in
+chunks). A new kind is a new file here, with its control as a new file
+beside ``control.py``. A load sets its cell up from the seed, runs units of
+work and checks what they produced against the reference."""
 from __future__ import annotations
 
 import importlib

@@ -1,6 +1,8 @@
 """The system under test, ``vision_basedsensor_tpu_torch``: the entry points
-that the cells drive and the layer functions that a traced run wraps in
-spans. Nothing else of the program is read."""
+that the cells drive (``initialize``, ``process_frames``, ``stream``: a
+``StreamingPipeline`` session, ``track_video``: the CLI's replay command)
+and the layer functions that a traced run wraps in spans. Nothing else of
+the program is read."""
 from __future__ import annotations
 
 import contextlib
@@ -43,6 +45,13 @@ class Program:
 
     def process_frames(self, frames, ref, cam, cfg):
         return self._pipeline.process_frames(frames, ref, cam, cfg)
+
+    def stream(self, cam, cfg, ref):
+        """A streaming session from the frame-0 table ``ref``: an object
+        whose ``process(frames)`` runs one chunk and advances the session's
+        state (the scan's carry, the association state)."""
+        return self._pipeline.StreamingPipeline(cam, cfg, ref=ref,
+                                                device=self.device)
 
     def track_video(self, path: str, chunk: int, out_dir: str) -> None:
         """``vbs-torch track <path> --tpu-decode --chunk <chunk>

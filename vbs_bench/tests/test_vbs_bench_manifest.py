@@ -1,11 +1,12 @@
 """BENCHMARK.json against the manifest's format, and every name in it found
 as a file."""
 import copy
+import inspect
 import json
 
 import pytest
 
-from vbs_bench import manifest
+from vbs_bench import loads, manifest
 
 M = manifest.load()
 
@@ -37,7 +38,8 @@ def test_each_cell_reports_setup_another_end_to_end_and_a_layer(cell):
     assert layers
     assert all(e["moves"] in e2e for e in layers)
     traffic = manifest.traffic(cell)
-    assert traffic["kind"] in ("batch", "replay")
+    assert (manifest.HERE / "loads" / f"{traffic['kind']}.py").is_file()
+    assert inspect.isclass(loads.load(traffic["kind"]))
     assert traffic["limits"]
     conf = manifest.config(M, cell)
     assert conf["name"] == cell["config"]
