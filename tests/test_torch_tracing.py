@@ -25,7 +25,8 @@ from vision_basedsensor_tpu_torch.utils.profiling import (SPANS, profile_to,
 
 H, W, B = 240, 384, 2
 # The spans of the ingest and the replay command; every other name is
-# emitted by process_frames (both detector branches) and a stream chunk.
+# emitted by process_frames (both detector branches), a stream chunk and a
+# rectifying session's first chunk (its map, initialize and remap).
 INGEST = {"vbs.feed.open", "vbs.feed.wait", "vbs.feed.device_decode",
           "vbs.stream.readback", "vbs.io.table"}
 CPU = torch.device("cpu")
@@ -41,11 +42,14 @@ def run():
     ref = pipeline.initialize(frames[0], cfg)
     unfused = dataclasses.replace(
         cfg, detect=dataclasses.replace(cfg.detect, backend="xla"))
+    rectified = dataclasses.replace(cfg, undistort_frames=True)
 
     def call():
         pipeline.process_frames(frames, ref, scene.cam, cfg)
         pipeline.process_frames(frames, ref, scene.cam, unfused)
         pipeline.StreamingPipeline(scene.cam, cfg, ref=ref,
+                                   device=CPU).process(frames)
+        pipeline.StreamingPipeline(scene.cam, rectified,
                                    device=CPU).process(frames)
     return dict(call=call, frames=frames, scene=scene, ref=ref,
                 cfgs={"fused": cfg, "unfused": unfused})

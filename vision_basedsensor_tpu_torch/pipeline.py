@@ -56,13 +56,14 @@ def prepare_undistortion(cam: CameraModel, height: int, width: int,
     rectified pixels, so reconstruction uses the returned zero-distortion
     camera, which keeps the original extrinsics. Returns
     ``(src_map, new_cam)``."""
-    if crop:
-        l, r, t, b = cfg.crop_ratios
-        width = (width - int(width * r)) - int(width * l)
-        height = (height - int(height * b)) - int(height * t)
-    new_cam = optimal_new_camera(cam, height, width, alpha=0.0)
-    src_map = build_rectify_map(cam, height, width, new_cam)
-    return src_map, new_cam._replace(R_wc=cam.R_wc, T_wc=cam.T_wc)
+    with trace_annotation("vbs.undistort.prepare"):
+        if crop:
+            l, r, t, b = cfg.crop_ratios
+            width = (width - int(width * r)) - int(width * l)
+            height = (height - int(height * b)) - int(height * t)
+        new_cam = optimal_new_camera(cam, height, width, alpha=0.0)
+        src_map = build_rectify_map(cam, height, width, new_cam)
+        return src_map, new_cam._replace(R_wc=cam.R_wc, T_wc=cam.T_wc)
 
 
 def _preprocess(frames: torch.Tensor, cfg: PipelineConfig, crop: bool,
@@ -73,8 +74,10 @@ def _preprocess(frames: torch.Tensor, cfg: PipelineConfig, crop: bool,
         if crop:
             frames = crop_frames(frames, crop_ratios=cfg.crop_ratios)
         if rectify_map is not None:
-            frames = remap_bilinear(
-                to_grayscale(frames, cfg.detect.channel_order), rectify_map)
+            with trace_annotation("vbs.undistort.remap"):
+                frames = remap_bilinear(
+                    to_grayscale(frames, cfg.detect.channel_order),
+                    rectify_map)
         return frames
 
 
@@ -96,13 +99,15 @@ def initialize(first_frame: torch.Tensor, cfg: PipelineConfig,
     """Frame-0 prologue: detect markers, assign canonical identities, and
     measure the session's photometric axis-calibration scalar. Raises when
     the frame holds no marker."""
-    frame = _preprocess(first_frame, cfg, crop, rectify_map)
-    det, scale = detect_markers_and_scale(frame, cfg.detect)
-    ref = assign_identities(det, cfg.track)._replace(axis_scale=scale)
-    if int(ref.valid.sum()) == 0:
-        raise ValueError("no markers detected in the first frame — check "
-                         "the camera/lens, channel_order, and crop settings")
-    return ref
+    with trace_annotation("vbs.pipeline.initialize"):
+        frame = _preprocess(first_frame, cfg, crop, rectify_map)
+        det, scale = detect_markers_and_scale(frame, cfg.detect)
+        ref = assign_identities(det, cfg.track)._replace(axis_scale=scale)
+        if int(ref.valid.sum()) == 0:
+            raise ValueError("no markers detected in the first frame — "
+                             "check the camera/lens, channel_order, and "
+                             "crop settings")
+        return ref
 
 
 def process_frames(frames: torch.Tensor, ref: ReferenceMarkers,

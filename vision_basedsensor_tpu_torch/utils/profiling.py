@@ -27,6 +27,10 @@ SPANS = (
     "vbs.pipeline.process_frames",      # pipeline.py:process_frames
     "vbs.pipeline.chunk",               # StreamingPipeline.process
     "vbs.pipeline.preprocess",          # pipeline.py:_preprocess
+    "vbs.pipeline.initialize",          # pipeline.py:initialize
+    # undistortion (pipeline.py)
+    "vbs.undistort.prepare",            # prepare_undistortion
+    "vbs.undistort.remap",              # _preprocess: grayscale and remap
     # detect (detect/detector.py:detect_markers_and_scale)
     "vbs.detect",
     "vbs.detect.filters",               # grayscale, DoG area mask, NCC
